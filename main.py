@@ -1,25 +1,23 @@
-"""CLI for the TPU-native RAG pipeline.
+"""CLI for the on-device RAG pipeline.
 
 Command set mirrors the reference's click CLI (reference main.py:6-64):
 ``parse-pdfs``, ``serialize-tables``, ``process-reports``,
-``process-questions`` — plus ``bench`` (the driver metric) and ``query``
+``process-questions`` — plus ``bench`` (the benchmark) and ``query``
 (one-shot retrieval inspection).  ``download-models`` exists for contract
 parity; model weights here are the local encoder, nothing to download.
+Built on the standard library's ``argparse``.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 from pathlib import Path
 
-import click
 
-from rag_challenge_2_tpu.pipeline import Pipeline, configs
-
-
-def _pipeline(root: str, config: str, **overrides) -> Pipeline:
-    import dataclasses
+def _pipeline(root: str, config: str, **overrides):
+    from rag_challenge_2_tpu.pipeline import Pipeline, configs
 
     # copy the preset: overrides must not mutate the shared registry entry
     run_config = dataclasses.replace(
@@ -28,13 +26,7 @@ def _pipeline(root: str, config: str, **overrides) -> Pipeline:
     return Pipeline(Path(root), run_config)
 
 
-@click.group()
-def cli():
-    """TPU-native RAG pipeline (rag_challenge_2_tpu)."""
-
-
-@cli.command("download-models")
-def download_models():
+def download_models(args):
     """Warm local models (encoder init + compile-cache prime)."""
     from rag_challenge_2_tpu.utils.cache import enable_compile_cache
 
@@ -43,126 +35,79 @@ def download_models():
 
     model = EmbeddingModel()
     emb = model.embed(["warmup 预热"])
-    click.echo(f"encoder ready: dim={emb.shape[1]}")
+    print(f"encoder ready: dim={emb.shape[1]}")
 
 
-@cli.command("parse-pdfs")
-@click.option("--root", default="data/test_set", show_default=True)
-@click.option("--config", default="base", show_default=True)
-@click.option("--parallel/--sequential", default=False, show_default=True)
-@click.option("--chunk-size", default=2, show_default=True)
-@click.option("--max-workers", default=10, show_default=True)
-@click.option("--parser", default="auto", show_default=True,
-              type=click.Choice(["auto", "docling", "builtin"]),
-              help="auto = docling when installed, else the built-in "
-                   "parser (.txt + digital-text .pdf via minipdf)")
-def parse_pdfs(root, config, parallel, chunk_size, max_workers, parser):
+def parse_pdfs(args):
     """PDF/TXT reports → parsed-report JSONs."""
-    _pipeline(root, config).parse_pdf_reports(
-        parallel=parallel, chunk_size=chunk_size, max_workers=max_workers,
-        parser=parser,
+    _pipeline(args.root, args.config).parse_pdf_reports(
+        parallel=args.parallel, chunk_size=args.chunk_size,
+        max_workers=args.max_workers, parser=args.parser,
     )
-    click.echo("parsed")
+    print("parsed")
 
 
-@cli.command("serialize-tables")
-@click.option("--root", default="data/test_set", show_default=True)
-@click.option("--config", default="base", show_default=True)
-@click.option("--max-workers", default=5, show_default=True)
-def serialize_tables(root, config, max_workers):
+def serialize_tables(args):
     """LLM table serialization over parsed reports."""
-    _pipeline(root, config).serialize_tables(max_workers=max_workers)
-    click.echo("serialized")
+    _pipeline(args.root, args.config).serialize_tables(max_workers=args.max_workers)
+    print("serialized")
 
 
-@cli.command("process-reports")
-@click.option("--root", default="data/test_set", show_default=True)
-@click.option("--config", default="base", show_default=True)
-def process_reports(root, config):
+def process_reports(args):
     """Merge → markdown → chunk → build the on-device corpus index."""
-    _pipeline(root, config).process_parsed_reports()
-    click.echo("index built")
+    _pipeline(args.root, args.config).process_parsed_reports()
+    print("index built")
 
 
-@cli.command("process-questions")
-@click.option("--root", default="data/test_set", show_default=True)
-@click.option("--config", default="qwen", show_default=True)
-@click.option("--use-hyde/--no-hyde", default=None)
-@click.option("--use-multi-query/--no-multi-query", default=None)
-def process_questions(root, config, use_hyde, use_multi_query):
+def process_questions(args):
     """Answer questions.json against the built index."""
-    p = _pipeline(root, config, use_hyde=use_hyde, use_multi_query=use_multi_query)
+    p = _pipeline(args.root, args.config, use_hyde=args.use_hyde,
+                  use_multi_query=args.use_multi_query)
     result = p.process_questions()
-    click.echo(json.dumps(result["statistics"], ensure_ascii=False))
+    print(json.dumps(result["statistics"], ensure_ascii=False))
 
 
-@cli.command("query")
-@click.option("--root", default="data/test_set", show_default=True)
-@click.option("--config", default="base", show_default=True)
-@click.option("--company", required=True)
-@click.option("--question", required=True)
-@click.option("--top-n", default=5, show_default=True)
-@click.option("--method", default="basic", show_default=True,
-              type=click.Choice(["basic", "ssg", "triangulation", "hybrid_expansion"]))
-@click.option("--use-bm25/--no-bm25", default=False, show_default=True,
-              help="fuse sparse BM25 hits into the dense results")
-def query(root, config, company, question, top_n, method, use_bm25):
+def query(args):
     """One-shot retrieval: show top chunks with scores (no answer LLM)."""
     from rag_challenge_2_tpu.index import load_index
     from rag_challenge_2_tpu.retrieval.engine import QueryEngine, SearchConfig
 
-    p = _pipeline(root, config)
+    p = _pipeline(args.root, args.config)
     idx, meta = load_index(p.paths.index_path)
     eng = QueryEngine(idx, meta)
-    q_emb = p.embedder([question])
-    cfg = SearchConfig(method=method, top_n=top_n, top_k=top_n, use_bm25=use_bm25)
+    q_emb = p.embedder([args.question])
+    cfg = SearchConfig(method=args.method, top_n=args.top_n, top_k=args.top_n,
+                       use_bm25=args.use_bm25)
     results = eng.materialize(
-        eng.search(q_emb, company, question, cfg=cfg, query_texts=[question]), cfg
+        eng.search(q_emb, args.company, args.question, cfg=cfg,
+                   query_texts=[args.question]), cfg
     )
     for r in results:
-        click.echo(
+        print(
             f"[{r['distance']:.4f}] {r['source_sha1']} p{r['page']} "
             f"hits={r['hit_count']} methods={r['method_count']}: {r['text'][:80]}"
         )
 
 
-@cli.command("bench")
-def bench():
-    """Run the driver benchmark (prints one JSON line)."""
+def bench(args):
+    """Run the benchmark (prints one JSON line)."""
     import bench as bench_mod
 
     bench_mod.main()
 
 
-
-
-@cli.command("serve")
-@click.option("--root", default="data/test_set", show_default=True)
-@click.option("--config", default="qwen", show_default=True)
-@click.option("--host", default="127.0.0.1", show_default=True)
-@click.option("--port", default=8899, show_default=True)
-@click.option("--company", default="金盘科技", show_default=True)
-@click.option("--micro-batch", default=0, show_default=True,
-              help="coalesce concurrent same-route searches into one "
-                   "vmapped device dispatch (0 = off)")
-def serve_cmd(root, config, host, port, company, micro_batch):
+def serve_cmd(args):
     """Launch the web QA frontend over the built index."""
-    from rag_challenge_2_tpu.serving import serve
+    from rag_challenge_2_tpu.serving.webapp import serve
 
-    p = _pipeline(root, config)
-    if micro_batch:
-        p.run_config = dataclasses.replace(p.run_config, micro_batch=micro_batch)
-    serve(p.build_processor(), host=host, port=port, default_company=company,
-          pdf_dir=p.paths.pdf_reports_dir)
+    p = _pipeline(args.root, args.config)
+    if args.micro_batch:
+        p.run_config = dataclasses.replace(p.run_config, micro_batch=args.micro_batch)
+    serve(p.build_processor(), host=args.host, port=args.port,
+          default_company=args.company, pdf_dir=p.paths.pdf_reports_dir)
 
 
-@cli.command("train-encoder")
-@click.option("--root", default="data/test_set", show_default=True)
-@click.option("--config", default="base", show_default=True)
-@click.option("--steps", default=200, show_default=True)
-@click.option("--batch-size", default=64, show_default=True)
-@click.option("--out", default=None, help="params npz (default <databases>/encoder_params.npz)")
-def train_encoder(root, config, steps, batch_size, out):
+def train_encoder(args):
     """Self-supervised (ICT) encoder pretraining on the chunked corpus."""
     from rag_challenge_2_tpu.index.build import load_chunked_reports
     from rag_challenge_2_tpu.models.pretrain import (
@@ -171,23 +116,18 @@ def train_encoder(root, config, steps, batch_size, out):
     from rag_challenge_2_tpu.utils.cache import enable_compile_cache
 
     enable_compile_cache()
-    p = _pipeline(root, config)
+    p = _pipeline(args.root, args.config)
     reports = load_chunked_reports(p.paths.documents_dir)
     texts = [c["text"] for r in reports for c in r["content"]["chunks"]]
     model, stats = pretrain_encoder(
-        texts, pre_cfg=PretrainConfig(steps=steps, batch_size=batch_size)
+        texts, pre_cfg=PretrainConfig(steps=args.steps, batch_size=args.batch_size)
     )
-    out = out or (p.paths.databases_path / "encoder_params.npz")
+    out = args.out or (p.paths.databases_path / "encoder_params.npz")
     save_params(model, out)
-    click.echo(json.dumps({"params": str(out), **stats["final"]}, ensure_ascii=False))
+    print(json.dumps({"params": str(out), **stats["final"]}, ensure_ascii=False))
 
 
-@cli.command("eval-encoder")
-@click.option("--ict-steps", default=5000, show_default=True)
-@click.option("--supervised-steps", default=2000, show_default=True)
-@click.option("--batch-size", default=64, show_default=True)
-@click.option("--out", default=None, help="write results json here")
-def eval_encoder(ict_steps, supervised_steps, batch_size, out):
+def eval_encoder(args):
     """Encoder retrieval-quality experiment (BASELINE config 4): synthetic
     Chinese financial corpus, held-out paraphrase queries, hit@10/MRR of
     random-init vs ICT vs ICT+supervised vs the BM25 baseline."""
@@ -196,54 +136,141 @@ def eval_encoder(ict_steps, supervised_steps, batch_size, out):
 
     enable_compile_cache()
     res = run_quality_eval(
-        ict_steps=ict_steps, supervised_steps=supervised_steps,
-        batch_size=batch_size, log=click.echo,
+        ict_steps=args.ict_steps, supervised_steps=args.supervised_steps,
+        batch_size=args.batch_size, log=print,
     )
     line = json.dumps(res, ensure_ascii=False)
-    click.echo(line)
-    if out:
-        with open(out, "w", encoding="utf-8") as f:
+    print(line)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
             f.write(line)
 
 
-@cli.command("analyze-similarity")
-@click.option("--root", default="data/test_set", show_default=True)
-@click.option("--config", default="base", show_default=True)
-@click.option("--doc", default=0, show_default=True, help="document id")
-@click.option("--out", default=None, help="output dir (default <databases>/similarity)")
-def analyze_similarity(root, config, doc, out):
+def analyze_similarity(args):
     """Chunk-to-chunk cosine matrix + stats for one document
     (the reference's semantic_similarity_analysis)."""
     from rag_challenge_2_tpu.eval.similarity import analyze_document
     from rag_challenge_2_tpu.index import load_index
 
-    p = _pipeline(root, config)
+    p = _pipeline(args.root, args.config)
     idx, meta = load_index(p.paths.index_path)
-    out = out or (p.paths.databases_path / "similarity")
-    stats = analyze_document(idx, meta, doc, output_dir=out)
-    click.echo(json.dumps(stats, ensure_ascii=False))
+    out = args.out or (p.paths.databases_path / "similarity")
+    stats = analyze_document(idx, meta, args.doc, output_dir=out)
+    print(json.dumps(stats, ensure_ascii=False))
 
 
-
-@cli.command("rank")
-@click.option("--submissions-dir", required=True, type=click.Path(exists=True))
-@click.option("--answers", required=True, type=click.Path(exists=True),
-              help="canonical answers JSON (question -> {kind, answers, reference_pools})")
-@click.option("--max-questions", default=60, show_default=True)
-@click.option("--csv-out", default=None)
-def rank(submissions_dir, answers, max_questions, csv_out):
+def rank(args):
     """Score submissions against canonical answers (the reference's rank.py)."""
     from rag_challenge_2_tpu.eval import rank_submissions
 
     scores = rank_submissions(
-        Path(submissions_dir), Path(answers),
-        max_questions=max_questions,
-        csv_out=Path(csv_out) if csv_out else None,
+        Path(args.submissions_dir), Path(args.answers),
+        max_questions=args.max_questions,
+        csv_out=Path(args.csv_out) if args.csv_out else None,
     )
     for i, s in enumerate(scores):
-        click.echo(f"{i+1}. {s.submission_name or s.file_name}: "
-                   f"score={s.score:.2f} (val {s.val_score:.1f} + ref {s.ref_score:.1f}/2)")
+        print(f"{i+1}. {s.submission_name or s.file_name}: "
+              f"score={s.score:.2f} (val {s.val_score:.1f} + ref {s.ref_score:.1f}/2)")
 
+
+def _existing_path(value: str) -> str:
+    if not Path(value).exists():
+        raise argparse.ArgumentTypeError(f"path {value!r} does not exist")
+    return value
+
+
+def _flag(p, on: str, off: str, default, help: str = "") -> None:
+    """A ``--on/--off`` boolean pair writing one destination."""
+    dest = on.lstrip("-").replace("-", "_")
+    p.add_argument(on, dest=dest, action="store_true", default=default, help=help)
+    p.add_argument(off, dest=dest, action="store_false")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="ragtpu", description="On-device RAG pipeline (rag_challenge_2_tpu).",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    def cmd(name, fn, root_config=None):
+        p = sub.add_parser(name, help=fn.__doc__.splitlines()[0],
+                           description=fn.__doc__,
+                           formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+        p.set_defaults(func=fn)
+        if root_config is not None:
+            p.add_argument("--root", default="data/test_set")
+            p.add_argument("--config", default=root_config)
+        return p
+
+    cmd("download-models", download_models)
+
+    p = cmd("parse-pdfs", parse_pdfs, "base")
+    _flag(p, "--parallel", "--sequential", False)
+    p.add_argument("--chunk-size", type=int, default=2)
+    p.add_argument("--max-workers", type=int, default=10)
+    p.add_argument("--parser", default="auto", choices=["auto", "docling", "builtin"],
+                   help="auto = docling when installed, else the built-in "
+                        "parser (.txt + digital-text .pdf via minipdf)")
+
+    p = cmd("serialize-tables", serialize_tables, "base")
+    p.add_argument("--max-workers", type=int, default=5)
+
+    cmd("process-reports", process_reports, "base")
+
+    p = cmd("process-questions", process_questions, "qwen")
+    _flag(p, "--use-hyde", "--no-hyde", None)
+    _flag(p, "--use-multi-query", "--no-multi-query", None)
+
+    p = cmd("query", query, "base")
+    p.add_argument("--company", required=True)
+    p.add_argument("--question", required=True)
+    p.add_argument("--top-n", type=int, default=5)
+    p.add_argument("--method", default="basic",
+                   choices=["basic", "ssg", "triangulation", "hybrid_expansion"])
+    _flag(p, "--use-bm25", "--no-bm25", False,
+          help="fuse sparse BM25 hits into the dense results")
+
+    cmd("bench", bench)
+
+    p = cmd("serve", serve_cmd, "qwen")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8899)
+    p.add_argument("--company", default="金盘科技")
+    p.add_argument("--micro-batch", type=int, default=0,
+                   help="coalesce concurrent same-route searches into one "
+                        "vmapped device dispatch (0 = off)")
+
+    p = cmd("train-encoder", train_encoder, "base")
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--out", default=None,
+                   help="params npz (default <databases>/encoder_params.npz)")
+
+    p = cmd("eval-encoder", eval_encoder)
+    p.add_argument("--ict-steps", type=int, default=5000)
+    p.add_argument("--supervised-steps", type=int, default=2000)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--out", default=None, help="write results json here")
+
+    p = cmd("analyze-similarity", analyze_similarity, "base")
+    p.add_argument("--doc", type=int, default=0, help="document id")
+    p.add_argument("--out", default=None,
+                   help="output dir (default <databases>/similarity)")
+
+    p = cmd("rank", rank)
+    p.add_argument("--submissions-dir", required=True, type=_existing_path)
+    p.add_argument("--answers", required=True, type=_existing_path,
+                   help="canonical answers JSON (question -> {kind, answers, "
+                        "reference_pools})")
+    p.add_argument("--max-questions", type=int, default=60)
+    p.add_argument("--csv-out", default=None)
+    return ap
+
+
+def cli(argv=None) -> None:
+    """Entry point (``ragtpu`` console script)."""
+    args = build_parser().parse_args(argv)
+    args.func(args)
 
 
 if __name__ == "__main__":

@@ -389,7 +389,7 @@ def eval_hybrid_e2e(
     embed_fn, k: int = 10, fuse_mode: str = "sum", dense_weight: float = 0.5,
     use_bm25: bool = True, vocab_bits: int = 16,
 ) -> Dict[str, float]:
-    """The NON-template-shaped quality check (VERDICT r4 #5): the e2e
+    """The NON-template-shaped quality check: the e2e
     fixture's annual-report prose (eval/e2e.fixture_docs — three invented
     companies, varied section structure, a positioned table page) queried
     with its 17 golden questions through the ROUTED hybrid engine.
@@ -546,7 +546,7 @@ def run_quality_eval(
     # synonym substitution on the query view (alias_swap_prob 0.8 —
     # mine_alias_pairs over the corpus's own definitional sentences, no
     # labels).  The measured-best label-free system: 0.73 hit@10, 2.4x
-    # random init (docs/ENCODER_QUALITY.json encoder_alias_distill).
+    # random init (encoder-quality run encoder_alias_distill).
     alias_distill, info = pretrain_encoder(
         ds.chunk_texts,
         enc_cfg=cfg,

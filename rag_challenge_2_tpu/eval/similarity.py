@@ -4,7 +4,7 @@ Equivalent of the reference's ``semantic_similarity_analysis/`` package
 (reference semantic_similarity_analysis/generate_similarity_matrix.py):
 there the vectors had to be pulled out of FAISS with ``reconstruct_batch``
 in chunks of 1000 (:38-64); here the embedding table is a device array, so
-the full cosine matrix is ONE matmul on the MXU.  Plotly heatmaps are
+the full cosine matrix is ONE device matmul.  Plotly heatmaps are
 emitted when plotly is installed; the numeric artifacts (npz + stats) are
 always written.
 """

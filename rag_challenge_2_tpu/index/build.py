@@ -117,8 +117,8 @@ def _build_sparse(
     n = len(chunk_texts)
 
     # native C++ builder (native/csr_builder.cpp) — same tokenizer and
-    # hash, ~2 orders faster at million-chunk scale; silently falls back
-    # to the Python path when the toolchain is missing
+    # hash, ~2 orders faster at million-chunk scale; falls back to the
+    # Python path when no C++ compiler is available
     from ..utils.native import build_csr_native
 
     nat = build_csr_native(list(chunk_texts), vocab_bits)
@@ -171,14 +171,10 @@ def _build_sparse(
     nnz = int(indptr[-1])
     counts = np.diff(indptr)
     max_post = int(counts.max()) if len(counts) else 0
-    # over-allocate so the Pallas span-gather kernel can DMA an ALIGNED
-    # extended span past any start offset without clamping (schema.dma_pad;
-    # ops/pallas_bm25.dma_slack)
-    from ..ops.pallas_bm25 import dma_slack
-
-    nnz_pad = max(_round_up(max(nnz, 1) + dma_slack(max_post), 1024), 1024)
-    chunk_ids = np.full((nnz_pad,), n_pad - 1, np.int32)  # pad → last (invalid) row
-    tf = np.zeros((nnz_pad,), np.float32)
+    # one sentinel posting when the corpus has none: the scorer clamps
+    # gather positions into the buffer, so it must not be empty
+    chunk_ids = np.full((max(nnz, 1),), n_pad - 1, np.int32)
+    tf = np.zeros((max(nnz, 1),), np.float32)
     chunk_ids[:nnz] = chunk_ids_u
     tf[:nnz] = tf_u
 
@@ -196,7 +192,6 @@ def _build_sparse(
         dl=jnp.asarray(dl),
         vocab_bits=vocab_bits,
         max_postings=max_post,
-        dma_pad=nnz_pad - nnz,
     )
 
 

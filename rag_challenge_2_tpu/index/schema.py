@@ -3,9 +3,10 @@
 The reference keeps one FAISS ``IndexFlatIP`` file and one pickled
 ``BM25Okapi`` per document (reference src/ingestion.py:79-102, :43-47) and
 loads them all into host RAM, pairing each with its chunked-report JSON
-(reference src/retrieval.py:488-541).  TPU-native design instead:
+(reference src/retrieval.py:488-541).  Device-resident design instead:
 
-*   ONE corpus-wide embedding matrix in HBM, padded to tile boundaries.
+*   ONE corpus-wide embedding matrix in device memory, padded to a
+    fixed row multiple.
     "Per-document / per-year databases" become **masks** over rows — year
     routing and company routing are cheap elementwise predicates fused into
     the scoring kernel, not file selection (SURVEY.md §5 "year-routing maps
@@ -29,8 +30,8 @@ from typing import Dict, List, Optional, Tuple
 
 import jax
 
-# Pad rows to a multiple of the f32 sublane tile (8) * lanes (128) so Pallas
-# tiles line up; 1024 also keeps block shapes friendly for large corpora.
+# Pad rows to a multiple of 1024: corpora of similar size share compiled
+# shapes, and block shapes stay friendly for large corpora.
 ROW_PAD = 1024
 KIND_CONTENT = 0
 KIND_SERIALIZED_TABLE = 1  # reference src/text_splitter.py:33-60 "serialized_table"
@@ -51,24 +52,18 @@ class SparseIndex:
     """
 
     indptr: jax.Array      # i32 [V + 1]
-    chunk_ids: jax.Array   # i32 [NNZ_pad]  (padded with N_pad sentinel)
-    tf: jax.Array          # f32 [NNZ_pad]
+    chunk_ids: jax.Array   # i32 [NNZ]
+    tf: jax.Array          # f32 [NNZ]
     df: jax.Array          # f32 [V]
     chunk_len: jax.Array   # f32 [N_pad]
     avgdl: jax.Array       # f32 scalar
     # per-POSTING doc length (chunk_len[chunk_ids], precomputed at build):
-    # lets the scoring kernel read lengths as contiguous spans beside tf
-    # instead of a random [N] gather per posting — that gather alone
-    # measured 1.74 ms/call at nnz=67M, N=10M on v5e.  Optional for
-    # back-compat with indexes persisted before it existed (runtime falls
-    # back to the gather).
-    dl: Optional[jax.Array] = None  # f32 [NNZ_pad]
+    # lets the scorer read lengths as contiguous spans beside tf instead
+    # of a random [N] gather per posting.  Optional (the scorer falls back
+    # to the gather).
+    dl: Optional[jax.Array] = None  # f32 [NNZ]
     vocab_bits: int = dataclasses.field(metadata=dict(static=True), default=20)
     max_postings: int = dataclasses.field(metadata=dict(static=True), default=0)
-    # slack beyond indptr[-1] in chunk_ids/tf: when ≥ the gather window, the
-    # Pallas contiguous-DMA span gather (ops/pallas_bm25.py) is eligible —
-    # spans can be copied without bounds clamping
-    dma_pad: int = dataclasses.field(metadata=dict(static=True), default=0)
 
 
 @jax.tree_util.register_dataclass

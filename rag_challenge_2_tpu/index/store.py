@@ -82,7 +82,7 @@ def save_index(path: Path, idx: CorpusIndex, meta: Optional[CorpusMeta] = None) 
 
 def quantize_index(idx: CorpusIndex) -> CorpusIndex:
     """int8 variant of a built corpus index: quarter the row-store memory
-    so one chip holds 4× the corpus at the same HBM budget (BASELINE.md
+    so one device holds 4× the corpus at the same memory budget (BASELINE.md
     "equal memory"; measured recall/QPS trade in bench.py).  The engine
     dispatches on ``emb.dtype`` — searches, traversal, and BM25 fusion all
     work unchanged."""
@@ -137,9 +137,6 @@ def save_ivf(path: Path, ivf, fingerprint: Optional[str] = None) -> None:
         "dim": ivf.dim,
         "emb_dtype": str(jnp.asarray(ivf.emb_perm).dtype),
         "fingerprint": fingerprint,
-        # Pallas probe-kernel layout contract (index/ivf.IVFIndex)
-        "list_align": ivf.list_align,
-        "dma_pad_rows": ivf.dma_pad_rows,
     }
     np.savez_compressed(path, __statics__=json.dumps(statics), **arrays)
 
@@ -184,9 +181,9 @@ def load_ivf(path: Path, expect_fingerprint: Optional[str] = None,
         k_clusters=statics["k_clusters"],
         max_list=statics["max_list"],
         dim=statics["dim"],
-        # pre-layout-contract sidecars load as legacy (unaligned) layout
-        list_align=statics.get("list_align", 0),
-        dma_pad_rows=statics.get("dma_pad_rows", 0),
+        # older sidecars also carry "list_align"/"dma_pad_rows" and pad
+        # rows between lists (row id -1): the probe masks those rows, so
+        # the fields are ignored
     )
     if device_put:
         ivf = jax.device_put(ivf)
@@ -224,8 +221,8 @@ def load_index(path: Path, device_put: bool = True) -> Tuple[CorpusIndex, Option
             dl=jnp.asarray(dl),
             vocab_bits=statics["sp_vocab_bits"],
             max_postings=statics["sp_max_postings"],
-            # recomputed (not persisted): slack beyond the live postings
-            dma_pad=int(len(z["sp_chunk_ids"]) - z["sp_indptr"][-1]),
+            # older files pad chunk_ids/tf past indptr[-1]; no span reads
+            # there, so the padding is carried along unread
         )
     emb_np = z["emb"]
     emb_dtype = statics.get("emb_dtype", "")

@@ -5,7 +5,7 @@ pipeline: layout + TableFormer table structure, page-sequence
 normalisation, spawn-based multi-process parallelism, and a
 ``JsonReportProcessor`` that assembles ``{metainfo, content, tables,
 pictures}``.  Docling is a host-side torch dependency and is OPTIONAL
-here — the TPU framework defines the *contract* and provides three
+here — this framework defines the *contract* and provides three
 sources:
 
   * :class:`DoclingParser` — the full pipeline when docling is installed
@@ -21,25 +21,34 @@ All emit the same parsed-report JSON the merger/splitter consume.
 
 from __future__ import annotations
 
+import csv
 import json
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional
 
-import pandas as pd
+
+def read_metadata(metadata_path: Optional[Path]) -> Optional[Dict[str, Dict]]:
+    """subset.csv → ``{sha1: row}`` (first row wins for a repeated sha1)."""
+    if not metadata_path:
+        return None
+    with open(metadata_path, newline="", encoding="utf-8") as f:
+        rows = {}
+        for rec in csv.DictReader(f):
+            rows.setdefault(rec.get("sha1", ""), rec)
+    return rows
 
 
-def _metainfo_for(sha1_name: str, metadata: Optional[pd.DataFrame]) -> Dict:
+def _metainfo_for(sha1_name: str, metadata: Optional[Dict[str, Dict]]) -> Dict:
     """subset.csv lookup: sha1 → company_name / year
     (reference src/pdf_parsing.py:380-410 uses csv metadata the same way)."""
     info = {"sha1_name": sha1_name}
-    if metadata is not None:
-        row = metadata[metadata["sha1"] == sha1_name]
-        if len(row):
-            rec = row.iloc[0].to_dict()
-            info["company_name"] = rec.get("company_name", "")
-            if "year" in rec and not pd.isna(rec.get("year")):
-                info["year"] = int(rec["year"])
+    rec = (metadata or {}).get(sha1_name)
+    if rec is not None:
+        info["company_name"] = rec.get("company_name") or ""
+        year = (rec.get("year") or "").strip()
+        if year:
+            info["year"] = int(float(year))
     return info
 
 
@@ -63,7 +72,7 @@ class PlainTextParser:
 
     def __init__(self, output_dir: Path, metadata_path: Optional[Path] = None):
         self.output_dir = Path(output_dir)
-        self.metadata = pd.read_csv(metadata_path) if metadata_path else None
+        self.metadata = read_metadata(metadata_path)
 
     def parse_file(self, path: Path) -> Dict:
         page_tables: List[List[Dict]] = []
@@ -370,7 +379,7 @@ class DoclingParser:
                 "contract)"
             )
         self.output_dir = Path(output_dir)
-        self.metadata = pd.read_csv(metadata_path) if metadata_path else None
+        self.metadata = read_metadata(metadata_path)
         self.table_mode_accurate = table_mode_accurate
         self.do_ocr = do_ocr
 
@@ -407,7 +416,9 @@ class DoclingParser:
         self, input_paths: List[Path], chunk_size: int = 2, max_workers: int = 4
     ) -> None:
         """spawn-based process pool (reference :247-361 — spawn keeps CUDA
-        contexts out of forked children)."""
+        contexts out of forked children).  Workers only parse: importing
+        the package creates no device array, so no worker opens the
+        accelerator."""
         import multiprocessing as mp
 
         chunks = [

@@ -20,14 +20,12 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional
 
-from ..llm import prompts
-from ..llm.providers import ChatProvider
 
 
 class TableSerializer:
     def __init__(
         self,
-        provider: ChatProvider,
+        provider: "ChatProvider",  # noqa: F821 — llm.providers
         model: Optional[str] = None,
         max_workers: int = 4,
         context_blocks_after: int = 3,
@@ -66,6 +64,8 @@ class TableSerializer:
 
     # ------------------------------------------------------------- per-file
     def serialize_table(self, report: Dict, table: Dict) -> Dict:
+        from ..llm import prompts
+
         tp = prompts.TableSerializationPrompt
         content = table.get("html") or table.get("markdown", "")
         result = self.provider.send_message(

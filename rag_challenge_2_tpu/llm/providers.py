@@ -23,7 +23,6 @@ import os
 import time
 from typing import Any, Dict, Optional, Type
 
-import requests
 from pydantic import BaseModel
 
 from .jsonfix import loads_lenient
@@ -166,6 +165,8 @@ class OpenAICompatProvider(ChatProvider):
         }
         if seed is not None:
             payload["seed"] = seed
+        import requests
+
         r = requests.post(
             f"{self.base_url}/chat/completions",
             json=payload,
@@ -196,6 +197,8 @@ class GeminiProvider(ChatProvider):
             "contents": [{"role": "user", "parts": [{"text": human_content}]}],
             "generationConfig": {"temperature": temperature},
         }
+        import requests
+
         r = requests.post(url, json=payload, timeout=self.timeout)
         if r.status_code == 429:
             raise ProviderError("rate limited (429)")

@@ -1,5 +1,5 @@
-from .encoder import EmbeddingModel, Encoder, EncoderConfig, tokenize_batch
-from .moe import MoEFFN
+from .encoder import EmbeddingModel, EncoderConfig, encode, init_params, tokenize_batch
+from .moe import moe_ffn
 from .pretrain import (
     PretrainConfig, contrastive_pairs, ict_pairs, load_params,
     pretrain_encoder, save_params,

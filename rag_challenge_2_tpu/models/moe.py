@@ -1,13 +1,13 @@
 """Mixture-of-experts FFN with expert parallelism.
 
-The TPU-native MoE formulation (GShard-style dense dispatch): routing
+GShard-style dense dispatch: routing
 produces capacity-limited one-hot dispatch/combine tensors, expert FFNs
 run as one batched einsum over the expert dimension, and the expert
 dimension shards over the mesh — expert parallelism expressed to GSPMD,
 no ragged all-to-all written by hand (XLA inserts it from the shardings).
 
 Used by the encoder when ``EncoderConfig.moe_experts > 0``: every other
-block's MLP becomes an ``MoEFFN``.  The reference has no training stack at
+block's MLP becomes :func:`moe_ffn`.  The reference has no training stack at
 all; this exists so the framework's training step exercises dp × tp × sp ×
 ep and scales the encoder's capacity for corpus-embedding quality work.
 """
@@ -18,7 +18,6 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
@@ -63,59 +62,59 @@ def top2_dispatch(router_logits: jax.Array, capacity: int):
     return dispatch, combine, aux
 
 
-class MoEFFN(nn.Module):
-    """Capacity-routed top-2 MoE feed-forward.
+def init_moe_params(key, n_experts: int, d_model: int, d_ff: int) -> dict:
+    """``{"router": {kernel, bias}, "w_in": [E, D, F], "w_out": [E, F, D]}``."""
+    lecun = jax.nn.initializers.lecun_normal()
+    k_r, k_in, k_out = jax.random.split(key, 3)
+    return {
+        "router": {
+            "kernel": lecun(k_r, (d_model, n_experts), jnp.float32),
+            "bias": jnp.zeros((n_experts,), jnp.float32),
+        },
+        "w_in": lecun(k_in, (n_experts, d_model, d_ff), jnp.float32),
+        "w_out": lecun(k_out, (n_experts, d_ff, d_model), jnp.float32),
+    }
+
+
+def _ep(x, spec, mesh: Optional[Mesh]):
+    if mesh is not None and "model" in mesh.shape:
+        x = jax.lax.with_sharding_constraint(x, NamedSharding(mesh, spec))
+    return x
+
+
+def moe_ffn(
+    p: dict,
+    x: jax.Array,
+    capacity_factor: float = 1.25,
+    dtype=jnp.bfloat16,
+    mesh: Optional[Mesh] = None,
+):
+    """Capacity-routed top-2 MoE feed-forward → ``(out [B, L, D], aux)``.
 
     Expert weights are [E, ...]; ``mesh`` shards E over the ``model`` axis
-    (ep). The dispatch/combine einsums become XLA all-to-alls under that
-    sharding.
+    (ep).  The dispatch/combine einsums become XLA all-to-alls under that
+    sharding.  ``aux`` is the Switch-style load-balance loss, which the
+    training objective adds (models/train.contrastive_loss).
     """
+    B, L, D = x.shape
+    T = B * L
+    E = p["w_in"].shape[0]
+    capacity = max(1, int(capacity_factor * T / E))
 
-    n_experts: int
-    d_model: int
-    d_ff: int
-    capacity_factor: float = 1.25
-    dtype = jnp.bfloat16
-    mesh: Optional[Mesh] = None
+    xt = x.reshape(T, D)
+    router = xt.astype(jnp.float32) @ p["router"]["kernel"] + p["router"]["bias"]
+    dispatch, combine, aux = top2_dispatch(router, capacity)
 
-    def _ep(self, x, spec):
-        if self.mesh is not None and "model" in self.mesh.shape:
-            x = jax.lax.with_sharding_constraint(x, NamedSharding(self.mesh, spec))
-        return x
+    # expert-parallel: expert dim sharded over 'model'
+    spec = P("model", None, None)
+    w_in = _ep(p["w_in"], spec, mesh)
+    w_out = _ep(p["w_out"], spec, mesh)
 
-    @nn.compact
-    def __call__(self, x: jax.Array):
-        B, L, D = x.shape
-        T = B * L
-        E = self.n_experts
-        capacity = max(1, int(self.capacity_factor * T / E))
-
-        xt = x.reshape(T, D)
-        router = nn.Dense(E, dtype=jnp.float32, name="router")(
-            xt.astype(jnp.float32)
-        )
-        dispatch, combine, aux = top2_dispatch(router, capacity)
-        self.sow("losses", "moe_aux", aux)
-
-        w_in = self.param(
-            "w_in", nn.initializers.lecun_normal(), (E, D, self.d_ff), jnp.float32
-        )
-        w_out = self.param(
-            "w_out", nn.initializers.lecun_normal(), (E, self.d_ff, D), jnp.float32
-        )
-        # expert-parallel: expert dim sharded over 'model'
-        w_in = self._ep(w_in, P("model", None, None))
-        w_out = self._ep(w_out, P("model", None, None))
-
-        expert_in = jnp.einsum(
-            "tec,td->ecd", dispatch.astype(self.dtype), xt.astype(self.dtype)
-        )
-        expert_in = self._ep(expert_in, P("model", None, None))
-        h = jnp.einsum("ecd,edf->ecf", expert_in, w_in.astype(self.dtype))
-        h = nn.gelu(h)
-        expert_out = jnp.einsum("ecf,efd->ecd", h, w_out.astype(self.dtype))
-        expert_out = self._ep(expert_out, P("model", None, None))
-        out = jnp.einsum(
-            "tec,ecd->td", combine.astype(self.dtype), expert_out
-        )
-        return out.reshape(B, L, D)
+    expert_in = jnp.einsum("tec,td->ecd", dispatch.astype(dtype), xt.astype(dtype))
+    expert_in = _ep(expert_in, spec, mesh)
+    h = jnp.einsum("ecd,edf->ecf", expert_in, w_in.astype(dtype))
+    h = jax.nn.gelu(h)
+    expert_out = jnp.einsum("ecf,efd->ecd", h, w_out.astype(dtype))
+    expert_out = _ep(expert_out, spec, mesh)
+    out = jnp.einsum("tec,ecd->td", combine.astype(dtype), expert_out)
+    return out.reshape(B, L, D), aux

@@ -1,13 +1,13 @@
-"""Pipeline-parallel encoder forward (GPipe over the Block stack).
+"""Pipeline-parallel encoder forward (GPipe over the block stack).
 
 The encoder's transformer blocks are homogeneous, so the stack maps
 directly onto parallel/pipeline.py's GPipe schedule: block ``i`` lives on
 pipe-stage ``i``, microbatches stream through with activations rotating
-over ICI (``ppermute``), and the embedding / pooling / projection ends run
+between devices (``ppermute``), and the embedding / pooling / projection ends run
 replicated outside the pipelined region.
 
 The reference has no model execution at all (SURVEY.md §2.3); this is the
-scaling path for encoders whose weights exceed one chip's HBM
+scaling path for encoders whose weights exceed one device's memory
 (BASELINE.md config 4 at larger model sizes).  dp×pp composes: the
 microbatch batch dim shards over the ``data`` axis inside the same
 shard_map (see ``pipeline_forward(batch_axis=...)``).
@@ -17,11 +17,10 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 from jax.sharding import Mesh
 
 from ..parallel.pipeline import pipeline_forward
-from .encoder import Block, EncoderConfig
+from .encoder import EncoderConfig, block, embed_tokens_in, pool_head
 
 
 def stack_block_params(params, n_layers: int):
@@ -39,52 +38,34 @@ def encode_pipelined(
     axis: str = "pipe",
     batch_axis: str | None = "data",
 ) -> jax.Array:
-    """Pipelined equivalent of ``Encoder.__call__`` (same params tree).
+    """Pipelined equivalent of ``encoder.encode`` (same params tree).
 
     Requires ``mesh.shape[axis] == cfg.n_layers`` (one block per stage),
     a dense FFN stack (no MoE — stages must be homogeneous), and a batch
     divisible by ``n_micro``.
     """
-    assert cfg.moe_experts == 0, "pipelined encoder requires homogeneous blocks"
+    if cfg.moe_experts:
+        raise ValueError("pipelined encoder requires homogeneous (dense) blocks")
     S = mesh.shape[axis]
-    assert S == cfg.n_layers, (
-        f"pipe axis ({S}) must equal n_layers ({cfg.n_layers}) — one stage per block"
-    )
+    if S != cfg.n_layers:
+        raise ValueError(
+            f"pipe axis ({S}) must equal n_layers ({cfg.n_layers}) — one stage per block")
     B, L = token_ids.shape
-    assert B % n_micro == 0, f"batch {B} not divisible by {n_micro} microbatches"
+    if B % n_micro:
+        raise ValueError(f"batch {B} not divisible by {n_micro} microbatches")
     p = params["params"]
 
-    pad = token_ids >= 0
-    ids = jnp.maximum(token_ids, 0)
-    x = nn.Embed(cfg.vocab_size, cfg.d_model, dtype=cfg.dtype).apply(
-        {"params": p["tok_embed"]}, ids
-    )
-    pos = nn.Embed(cfg.max_len, cfg.d_model, dtype=cfg.dtype).apply(
-        {"params": p["pos_embed"]}, jnp.arange(L)[None, :]
-    )
-    x = x + pos
-    attn_mask = nn.make_attention_mask(pad, pad, dtype=cfg.dtype)
-
+    x, pad = embed_tokens_in(p, token_ids, cfg)
     mb = B // n_micro
     xs = x.reshape(n_micro, mb, L, cfg.d_model)
-    masks = attn_mask.reshape(n_micro, mb, *attn_mask.shape[1:])
+    pads = pad.reshape(n_micro, mb, L)
 
-    stacked = stack_block_params(params, cfg.n_layers)
-    block = Block(cfg)
-
-    def stage_fn(pb, x_mb, m_mb):
-        return block.apply({"params": pb}, x_mb, m_mb)
+    def stage_fn(pb, x_mb, pad_mb):
+        return block(pb, x_mb, pad_mb, cfg)[0]
 
     y = pipeline_forward(
-        stage_fn, stacked, xs, mesh, axis=axis, extras=masks,
+        stage_fn, stack_block_params(params, cfg.n_layers), xs, mesh,
+        axis=axis, extras=pads,
         batch_axis=batch_axis if batch_axis in mesh.shape else None,
     )
-    x = y.reshape(B, L, cfg.d_model)
-
-    x = nn.LayerNorm(dtype=cfg.dtype).apply({"params": p["ln_f"]}, x)
-    denom = jnp.maximum(jnp.sum(pad, axis=1, keepdims=True), 1)
-    pooled = jnp.sum(x * pad[..., None], axis=1) / denom
-    out = nn.Dense(cfg.out_dim, dtype=jnp.float32).apply(
-        {"params": p["proj"]}, pooled.astype(jnp.float32)
-    )
-    return out / jnp.maximum(jnp.linalg.norm(out, axis=-1, keepdims=True), 1e-9)
+    return pool_head(p, y.reshape(B, L, cfg.d_model), pad, cfg)

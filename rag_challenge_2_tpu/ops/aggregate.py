@@ -29,7 +29,7 @@ import jax.numpy as jnp
 
 from .topk import NEG_INF
 
-_BIG = jnp.int32(2**30)
+_BIG = 2**30  # a Python int: importing this module creates no device array
 
 QUERY_BONUS = 0.2   # reference src/retrieval.py:1645
 METHOD_BONUS = 0.1  # reference src/retrieval.py:1655
@@ -89,14 +89,11 @@ def fuse_hits(
       init).  Bonuses, dedup, and every output field keep identical
       semantics; ``base_sim``/``rep_row`` still report the raw max hit.
 
-    Formulation note: everything is sorts + per-position scans.  A previous
-    version compacted per-key values with ``segment_sum``/``segment_max``
-    (TPU scatters) and selected the top-n with ``top_k`` + per-field
-    gathers; the scatters/gathers carry ~0.2–1 ms fixed cost each on TPU
-    (profiled in the 10M hybrid graph), so per-key reductions now ride the
-    sorted order (cumsum-difference for counts, a segmented max scan for
-    the base similarity) and the top-n selection is one multi-operand sort
-    that carries every output field.
+    Formulation note: everything is sorts + per-position scans, with no
+    scatter: per-key reductions ride the sorted order (cumsum-difference
+    for counts, a segmented max scan for the base similarity) and the
+    top-n selection is one multi-operand sort that carries every output
+    field.
     """
     L = key.shape[0]
     key_s = jnp.where(valid, key, _BIG)

@@ -3,10 +3,10 @@
 The BASELINE metric is recall + QPS **at equal memory** (BASELINE.md; the
 reference serves f32 FAISS flat-IP, src/ingestion.py:79-84).  An int8 row
 store quarters the bytes of the corpus matrix — the exact-scan and IVF
-probes are HBM-bandwidth-bound (DESIGN.md), so fewer bytes is the one
-lever left after the layout work.  Unlike the bf16 variant (which lost
-its bandwidth win to a per-step f32 upcast of the gathered block), int8
-keeps the inner product in int8×int8→int32 on the MXU and applies the
+probes are memory-bandwidth-bound (DESIGN.md), so fewer bytes is the one
+lever left after the layout work.  Unlike the bf16 variant (whose probe
+upcasts the gathered block to f32), int8 keeps the inner product in
+int8×int8→int32 and applies the
 dequantization as a cheap rank-1 scale on the [B, N] result:
 
     score(q, x) ≈ (sq · sx) · Σ round(q/sq)·round(x/sx)
@@ -47,10 +47,10 @@ def quantize_query_2pass(q: jax.Array) -> Tuple[jax.Array, jax.Array, jax.Array]
 
     The residual of the first int8 pass is itself int8-quantized, driving
     the query-side quantization error to ~s_hi/254² — effectively exact —
-    while every product stays int8×int8→int32 on the MXU.  Stacking
+    while every product stays int8×int8→int32.  Stacking
     ``[q8_hi; q8_lo]`` into one [2B, D] operand reads the corpus block
-    once for both passes (the scan is HBM-bound, so the 2× MXU work is
-    nearly free).  Returns ``(q8 [2B, D] int8, s_hi [B], s_lo [B])``."""
+    once for both passes (the scan is memory-bound, so the 2× matmul work
+    is nearly free).  Returns ``(q8 [2B, D] int8, s_hi [B], s_lo [B])``."""
     qf = q.astype(jnp.float32)
     q_hi, s_hi = quantize_rows(qf)
     resid = qf - q_hi.astype(jnp.float32) * s_hi[..., None]
@@ -60,7 +60,7 @@ def quantize_query_2pass(q: jax.Array) -> Tuple[jax.Array, jax.Array, jax.Array]
 
 def int8_scores(q: jax.Array, emb_i8: jax.Array, row_scale: jax.Array) -> jax.Array:
     """``[B, N]`` f32 scores of f32/bf16 queries against an int8 row store:
-    quantize the query per row, int8×int8→int32 on the MXU, rank-1 dequant
+    quantize the query per row, int8×int8→int32, rank-1 dequant
     epilogue.  The single definition of the quantized-dot scheme for every
     full-matrix site (exact scan, engine pair_topk, sharded shards); the
     IVF probe keeps its own gather-shaped ``bd,bwd`` variant."""
@@ -77,8 +77,7 @@ def quantize_rows_residual(
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """Centroid-residual int8: ``x ≈ centroids[assign] + q * scale[:, None]``.
 
-    The recall lever past plain per-row int8 (measured ceiling 0.9197
-    recall@10 at 10M rows, BENCH_r04): clustered corpora put most of a
+    The recall lever past plain per-row int8: clustered corpora put most of a
     row's magnitude in its centroid, so quantizing only the residual
     shrinks the quantization step ~3× at the SAME stored bytes (int8 rows
     + f32 scale per row; the extra i32 assign is 4 bytes per 1024-byte
@@ -116,7 +115,7 @@ def int8_residual_scores(
     """``[B, N]`` f32 scores against a centroid-residual int8 store:
 
         score(q, x) = (q · c_a)            — exact f32, [B, K] matmul + gather
-                    + sq·sx · (q8 · r8)    — int8×int8→int32 on the MXU
+                    + sq·sx · (q8 · r8)    — int8×int8→int32
 
     The centroid part is exact (no quantization error), and the query-
     quantization error now multiplies only the residual magnitude, so the
@@ -147,8 +146,8 @@ def int8_residual_topk(
 
     Runs the BLOCKED scan (ops/topk.blocked_topk with the residual bias
     folded per block): the one-shot ``[B, N]`` form OOMs at 10M rows —
-    the bias gather materializes f32 [N, B] twice (9.5 GB HLO temp,
-    measured) where the plain int8 one-shot fuses into a single scores
+    the bias gather materializes f32 [N, B] twice (about 9.5 GB of
+    temporaries) where the plain int8 one-shot fuses into a single scores
     buffer.  ``query_2pass`` (default on) removes the query-side
     quantization error via :func:`quantize_query_2pass`."""
     from .topk import blocked_topk
@@ -206,8 +205,8 @@ def int8_residual_topk_rescored(
     10 GB scan) and reranks with the exact centroid bias + 2-pass query,
     i.e. the highest-precision scoring this store supports.
 
-    Measured at 10M×1024 (BENCH_r05): recall@10 ≥ the exact 2-pass scan
-    at ~1.5× its throughput — the shipped high-recall operating point.
+    Its recall@10 is meant to reach the exact 2-pass scan's at a fraction
+    of the reranked rows — the shipped high-recall operating point.
     """
     from .topk import blocked_topk
 
@@ -267,12 +266,9 @@ def int8_topk(
     """
     n = emb_i8.shape[0]
     k = min(k, n)
-    # One-shot at every N: at [127, 10M] the sort over [B, N] is ~2/3 of
-    # the 79.6 ms call, but every exact two-stage tried either loses to
-    # it or cannot be trusted/compiled on this backend (DESIGN.md
-    # "PartialReduce").  Callers who can trade a measured sliver of
-    # recall for the corpus-read roofline (~24 ms) use ops.topk.approx_topk
-    # (the engine's scan_rt knob); bounded-memory exact is blocked_topk.
+    # One-shot at every N.  Callers who can trade recall for speed use
+    # ops.topk.approx_topk (the engine's scan_rt knob); bounded-memory
+    # exact is blocked_topk.
     scores = _mask_scores(int8_scores(q, emb_i8, row_scale), mask)
     vals, idx = jax.lax.top_k(scores, k)
     return vals, idx.astype(jnp.int32)

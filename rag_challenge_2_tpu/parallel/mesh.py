@@ -4,7 +4,7 @@ The reference has no model/data parallelism at all (SURVEY.md §2.3 — its
 "distributed" layer is thread pools around HTTP).  Here the mesh is a
 first-class object: index rows shard over ``data``, encoder weights shard
 over ``model`` (tensor parallelism), and XLA inserts the collectives
-(all-gather / psum / reduce-scatter) over ICI.
+(all-gather / psum / reduce-scatter) over the device interconnect.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def make_mesh(
 
 
 def cpu_mesh(axes: Dict[str, int]) -> Mesh:
-    """Mesh over virtual CPU devices (tests / dry runs without TPU pods)."""
+    """Mesh over virtual CPU devices (tests / dry runs without accelerators)."""
     return make_mesh(axes, devices=jax.devices("cpu"))
 
 

@@ -3,14 +3,14 @@
 Stages are homogeneous (stacked params with a leading stage dim, sharded
 over the ``pipe`` axis); microbatches flow through the classic
 (S + M − 1)-step schedule, activations rotating stage→stage with
-``ppermute`` over ICI.  Written with ``shard_map`` so the schedule and the
+``ppermute``.  Written with ``shard_map`` so the schedule and the
 collective are explicit — the part of the parallelism inventory GSPMD
 can't derive from shardings alone.
 
 The reference has no model execution at all (SURVEY.md §2.3); this exists
-for scaling the encoder beyond one chip's HBM in later rounds.  Round-1
-integration point: `pipeline_forward` runs any per-stage function; the
-encoder's homogeneous Block stack fits it directly.
+for scaling the encoder beyond one device's memory.  `pipeline_forward`
+runs any per-stage function; the encoder's homogeneous block stack fits
+it directly (models/pipelined.py).
 """
 
 from __future__ import annotations

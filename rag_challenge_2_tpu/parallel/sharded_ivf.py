@@ -5,7 +5,7 @@ module scales the clustered (ANN) path the same way — the faiss-distributed
 recipe: each device owns a contiguous row range of the corpus and builds
 its OWN IVF over it (k-means per shard is embarrassingly parallel), queries
 probe every shard's nprobe best lists locally, and the per-shard top-k
-candidates merge with one ``all_gather`` over ICI with the same
+candidates merge with one ``all_gather`` with the same
 deterministic tie-breaking as the dense merge (lower global row wins).
 
 Probing nprobe lists on EACH of S shards scans S·nprobe lists total, so at
@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -83,10 +84,11 @@ def build_sharded_ivf(
 ) -> ShardedIVF:
     """Build one IVF per contiguous row shard and stack them device-placed.
 
-    ``emb`` is the [N, D] corpus (f32); each shard's k-means runs
-    independently (sequential here — one chip — but embarrassingly
-    parallel on a real pod).  ``quantize`` stores int8 rows per shard
-    (ops/quant.py)."""
+    ``emb`` is the [N, D] corpus; each shard's k-means runs independently
+    (one after another, on the default device).  Each finished shard is
+    moved to host memory and the stack is placed from there, so no device
+    ever holds more than one shard's build beside ``emb``.  ``quantize``
+    stores int8 rows per shard (ops/quant.py)."""
     S = mesh.shape[axis]
     N, D = emb.shape
     if N < S:
@@ -104,7 +106,7 @@ def build_sharded_ivf(
         )
         if quantize:
             ivf = quantize_ivf(ivf)
-        parts.append(ivf)
+        parts.append(jax.device_get(ivf))
 
     if any(p.k_clusters != parts[0].k_clusters for p in parts):
         raise ValueError("per-shard IVFs must share k_clusters")
@@ -116,25 +118,21 @@ def build_sharded_ivf(
         outs = []
         for p in parts:
             a = get(p)
-            pad = n_pad - a.shape[0]
-            if pad and a.ndim == 2:
-                a = jnp.pad(a, ((0, pad), (0, 0)), constant_values=pad_value)
-            elif pad:
-                a = jnp.pad(a, (0, pad), constant_values=pad_value)
-            outs.append(a)
-        return jnp.stack(outs)
+            pad = [(0, n_pad - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
+            outs.append(np.pad(a, pad, constant_values=pad_value))
+        return np.stack(outs)
 
     sivf = ShardedIVF(
-        centroids=jnp.stack([p.centroids for p in parts]),
+        centroids=np.stack([p.centroids for p in parts]),
         emb_perm=stack(lambda p: p.emb_perm, 0),
         row_ids=stack(lambda p: p.row_ids, -1),
         pos_cluster=stack(lambda p: p.pos_cluster, K),
-        list_offsets=jnp.stack([p.list_offsets for p in parts]),
+        list_offsets=np.stack([p.list_offsets for p in parts]),
         row_scale=(
             stack(lambda p: p.row_scale, 0.0) if quantize else None
         ),
-        list_row_min=jnp.stack([p.list_row_min for p in parts]),
-        list_row_max=jnp.stack([p.list_row_max for p in parts]),
+        list_row_min=np.stack([p.list_row_min for p in parts]),
+        list_row_max=np.stack([p.list_row_max for p in parts]),
         k_clusters=K,
         max_list=max_list,
         dim=D,
@@ -203,10 +201,6 @@ def make_sharded_ivf_search(
             k_clusters=K,
             max_list=max_list,
             dim=dim,
-            # the stacked layout pads shards to a common n_pad, breaking
-            # the span-kernel alignment promise — probe via the XLA scan
-            list_align=0,
-            dma_pad_rows=0,
         )
         base = jax.lax.axis_index(axis) * rows_per_shard
         kw = {}

@@ -3,7 +3,7 @@
 The scaling axis of this framework is index length, not sequence length
 (SURVEY.md §5): the embedding matrix row-shards across the ``data`` mesh
 axis, every device scores its shard locally (matmul + local top-k), and the
-per-shard candidates merge with one ``all_gather`` over ICI — the classic
+per-shard candidates merge with one ``all_gather`` — the classic
 distributed top-k, written with ``shard_map`` so the collective is explicit
 and deterministic (ties break toward lower global row, matching the
 single-device kernel).
@@ -46,8 +46,8 @@ def make_sharded_topk(mesh: Mesh, k: int, axis: str = "data", int8: bool = False
 
     q: [B, D] replicated; emb: [N, D] row-sharded; mask: [N] row-sharded.
     With ``int8=True``, emb is an int8 store and a row-sharded [N] f32
-    ``row_scale`` is the extra trailing argument (ops/quant.py) — each chip
-    then holds 4× the rows at the same HBM budget.
+    ``row_scale`` is the extra trailing argument (ops/quant.py) — each
+    device then holds 4× the rows at the same memory budget.
     Returns replicated ([B, k], [B, k]) with global row indices.
     """
     key = (mesh, k, axis, int8)
@@ -112,18 +112,19 @@ def make_hierarchical_topk(
 ):
     """Two-level distributed top-k over a (slice × device) mesh.
 
-    Pod-scale topology (SURVEY.md §5): devices within a slice talk over
-    ICI; slices talk over DCN — orders of magnitude less bandwidth.  The
+    Multi-node topology (SURVEY.md §5): a slice is one node, whose devices
+    talk over the intra-node links (NVLink between the GPUs of one host);
+    slices talk over the inter-node network, with far less bandwidth.  The
     flat merge (``make_sharded_topk``) all-gathers every device's k
-    candidates across the WHOLE mesh, so DCN carries S_dev × k rows per
-    slice.  Here the merge is hierarchical:
+    candidates across the WHOLE mesh, so the inter-node network carries
+    S_dev × k rows per slice.  Here the merge is hierarchical:
 
     1. local top-k per device;
-    2. ``all_gather`` over ``dev_axis`` (ICI) + merge → each slice's
-       top-k, replicated within the slice;
-    3. ``all_gather`` over ``slice_axis`` (DCN) + merge → global top-k —
-       each slice ships exactly k candidates cross-slice, an S_dev×
-       reduction in DCN traffic.
+    2. ``all_gather`` over ``dev_axis`` (intra-node) + merge → each
+       slice's top-k, replicated within the slice;
+    3. ``all_gather`` over ``slice_axis`` (inter-node) + merge → global
+       top-k — each slice ships exactly k candidates across nodes, an
+       S_dev× reduction in inter-node traffic.
 
     Ties break toward the lower global row at BOTH levels, so results are
     bit-identical to the flat merge and the single-device kernel.
@@ -182,9 +183,9 @@ def make_hierarchical_topk(
             + jax.lax.axis_index(dev_axis)
         )
         gidx = jnp.where(vals > NEG_INF / 2, idx + shard * rows_per_shard, -1)
-        # level 1 — ICI within the slice
+        # level 1 — intra-node, within the slice
         sv, si = merge(vals, gidx, dev_axis, n_dev, k)
-        # level 2 — DCN across slices: k candidates per slice, not S_dev·k
+        # level 2 — inter-node, across slices: k per slice, not S_dev·k
         return merge(sv, si, slice_axis, n_slices, k)
 
     mask_spec = (P(None, (slice_axis, dev_axis)) if pair_mask

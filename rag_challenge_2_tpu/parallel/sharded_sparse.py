@@ -112,13 +112,9 @@ def _sharded_bm25_topk_impl(
 ):
     from ..ops.bm25 import _bm25_topk_impl
 
-    local = functools.partial(
-        _bm25_topk_impl, window=window, k=k, k1=k1, b=b, use_pallas=False
-    )
-    # per-shard kernel over the stacked CSR axis; the Pallas span gather is
-    # not vmap-validated under Mosaic, so shards use the XLA gather (the
-    # per-shard nnz is 1/S of the corpus — the gather domain shrinks with
-    # the shard, which is the point)
+    local = functools.partial(_bm25_topk_impl, window=window, k=k, k1=k1, b=b)
+    # per-shard scorer over the stacked CSR axis (the per-shard nnz is 1/S
+    # of the corpus — the gather domain shrinks with the shard)
     sv, sr, sok = jax.vmap(
         local,
         in_axes=(0, 0, 0, None, None, None, None, None, None, None, None,

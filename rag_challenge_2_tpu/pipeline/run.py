@@ -1,12 +1,15 @@
 """Pipeline stages and named run configurations.
 
 Stage methods mirror the reference ``Pipeline``
-(reference src/pipeline.py:103-331) over the TPU-native components;
+(reference src/pipeline.py:103-331) over the on-device components;
 ``RunConfig`` carries the same flags (reference :45-62) extended with the
 retrieval-method knobs; the named-config registry mirrors the reference's
 13 presets (reference :476-488) with their provider/model/flag choices —
 the IBM entries are kept for parity but route through the OpenAI-compatible
 client (the original contest proxy is long gone).
+
+Ingestion and the LLM/QA layer are imported inside the stages that use
+them, so indexing and search run without the LLM layer's packages.
 """
 
 from __future__ import annotations
@@ -19,15 +22,6 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from ..index import load_index
-from ..ingestion import (
-    CorpusIngestor,
-    PageTextPreparation,
-    TableSerializer,
-    TextSplitter,
-    get_parser,
-)
-from ..llm import LLMFacade, LLMReranker, get_provider
-from ..qa import QAConfig, QuestionsProcessor
 from ..retrieval.engine import QueryEngine
 from .paths import PipelineConfig, next_available_filename
 
@@ -68,15 +62,14 @@ class RunConfig:
                                     # searches into one vmapped dispatch
                                     # (serving/batcher.MicroBatcher)
     quantize_int8: bool = False     # int8 row store at load: 4× corpus per
-                                    # HBM byte (index/store.quantize_index)
-    scan_rt: Optional[float] = None  # fast large-corpus scan mode: fused
-                                     # PartialReduce at this recall target
-                                     # instead of the exact sort (10M-scale
-                                     # configs; bench.py measures the cost)
+                                    # device byte (index/store.quantize_index)
+    scan_rt: Optional[float] = None  # large-corpus scan mode: approx_max_k
+                                     # at this recall target instead of the
+                                     # exact sort (10M-scale configs)
     cluster_order: bool = False     # with use_ivf: rearrange the corpus into
                                     # IVF list order at load — ONE row store
                                     # serves probes + flat paths (halves
-                                    # serving HBM; index/ivf
+                                    # serving memory; index/ivf
                                     # .cluster_order_index)
 
 
@@ -101,6 +94,8 @@ class Pipeline:
     @property
     def provider(self):
         if self._provider is None:
+            from ..llm import get_provider
+
             self._provider = get_provider(self.run_config.api_provider)
         return self._provider
 
@@ -138,6 +133,8 @@ class Pipeline:
     # ingestion stages (reference src/pipeline.py:204,145,153,162,171) --
     def parse_pdf_reports(self, parallel: bool = False, chunk_size: int = 2,
                           max_workers: int = 10, parser: str = "auto") -> None:
+        from ..ingestion.pdf import get_parser
+
         parser = get_parser(self.paths.parsed_reports_path,
                             self.paths.subset_path, kind=parser)
         inputs = sorted(self.paths.pdf_reports_dir.glob("*"))
@@ -148,11 +145,15 @@ class Pipeline:
             parser.parse_and_export(inputs)
 
     def serialize_tables(self, max_workers: int = 5) -> None:
+        from ..ingestion.tables import TableSerializer
+
         TableSerializer(self.provider, max_workers=max_workers).process_directory_parallel(
             self.paths.parsed_reports_path, self.paths.serialized_reports_path
         )
 
     def merge_reports(self) -> None:
+        from ..ingestion.merging import PageTextPreparation
+
         prep = PageTextPreparation(
             use_serialized_tables=self.run_config.use_serialized_tables
         )
@@ -165,11 +166,15 @@ class Pipeline:
         prep.process_reports(src, self.paths.merged_reports_path)
 
     def export_reports_to_markdown(self) -> None:
+        from ..ingestion.merging import PageTextPreparation
+
         PageTextPreparation().export_to_markdown(
             self.paths.merged_reports_path, self.paths.reports_markdown_path
         )
 
     def chunk_reports(self) -> None:
+        from ..ingestion.splitter import TextSplitter
+
         TextSplitter().split_all_reports(
             self.paths.merged_reports_path,
             self.paths.documents_dir,
@@ -190,6 +195,8 @@ class Pipeline:
         with ``RAGTPU_AUTO_PRETRAIN=0`` or tune steps via
         ``RAGTPU_AUTO_PRETRAIN_STEPS``."""
         import os
+
+        from ..ingestion.ingestor import CorpusIngestor
 
         params_path = self.paths.databases_path / "encoder_params.npz"
         if (
@@ -227,7 +234,12 @@ class Pipeline:
         self.create_vector_dbs()
 
     # question answering (reference :254-331) ---------------------------
-    def build_processor(self) -> QuestionsProcessor:
+    def build_processor(self):
+        """The QA processor over the persisted index (a
+        ``qa.QuestionsProcessor``)."""
+        from ..llm import LLMFacade, LLMReranker
+        from ..qa import QAConfig, QuestionsProcessor
+
         idx, meta = load_index(self.paths.index_path)
         rc = self.run_config
         if rc.quantize_int8:
@@ -261,7 +273,7 @@ class Pipeline:
             # load the persisted IVF when it matches this exact corpus
             # artifact; otherwise build once and persist (the reference's
             # indexes are written once and loaded forever, src/ingestion.py
-            # :92-102 — rebuilding k-means on every start costs ~59 s at 1M)
+            # :92-102 — k-means at 1M rows is not worth redoing per start)
             from ..index.store import index_fingerprint, load_ivf, save_ivf
 
             ivf_path = Path(str(self.paths.index_path) + ".ivf.npz")
@@ -350,10 +362,9 @@ configs: Dict[str, RunConfig] = {
                     answering_model="stub", parallel_requests=1,
                     submission_file=True, config_suffix="_offline"),
     # 10M-row serving preset (BASELINE config 5 scale): int8 row store
-    # (10.2 GB for 10M×1024 — the only way the corpus fits one chip),
-    # IVF probes over the cluster-ordered store (one buffer for probes +
-    # flat paths, Pallas span-fused scoring), and the PartialReduce fast
-    # scan for the traversal/exact tiers.  bench.py measures every tier.
+    # (10.2 GB for 10M×1024), IVF probes over the cluster-ordered store
+    # (one buffer for probes + flat paths), and the approx_max_k scan
+    # mode for the traversal/exact tiers.
     "scale10m": _cfg(parent_document_retrieval=True, quantize_int8=True,
                      use_ivf=True, ivf_nprobe=8, cluster_order=True,
                      scan_rt=0.95, config_suffix="_scale10m"),

@@ -8,7 +8,7 @@ scenario rewrite), each returning queries wrapped in ``<...>`` with a
 ``<SKIP>`` opt-out; results are deduplicated preserving order.
 
 LLM calls go through any ChatProvider (the offline stub in tests); the
-expansion output feeds the engine as extra batch rows — the TPU-side
+expansion output feeds the engine as extra batch rows — the on-device
 fan-out itself lives in retrieval/engine.py.
 """
 

@@ -14,7 +14,7 @@ score/reasoning plus aggregate stats (reference :2846+).
 
 Streamlit is not available in this image, so the app is a dependency-free
 ``http.server`` JSON API + a single-page HTML client.  All retrieval runs
-on the TPU through the same QuestionsProcessor as the CLI.
+on the accelerator through the same QuestionsProcessor as the CLI.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from ..qa.processor import QuestionsProcessor
 _PAGE = """<!DOCTYPE html>
 <html lang="zh">
 <head>
-<meta charset="utf-8"><title>金盘科技年报问答 (TPU)</title>
+<meta charset="utf-8"><title>金盘科技年报问答</title>
 <style>
  body { font-family: system-ui, "PingFang SC", sans-serif; margin: 0; display: flex; }
  #side { width: 320px; padding: 16px; background: #f5f6f8; height: 100vh;
@@ -96,7 +96,7 @@ _PAGE = """<!DOCTYPE html>
  <div id="bank"></div>
 </div>
 <div id="main">
- <h2>金盘科技年报问答 <small style="color:#888">TPU-native</small></h2>
+ <h2>金盘科技年报问答 <small style="color:#888">on-device retrieval</small></h2>
  <div class="modes">
   <button id="mode_qa" class="on" onclick="setMode('qa')">问答</button>
   <button id="mode_eval" onclick="setMode('eval')">评估结果分析</button>

@@ -1,15 +1,20 @@
 """ctypes bridge to the native CSR builder (native/csr_builder.cpp).
 
-Auto-builds the shared library with g++ on first use (cached beside the
-source); every entry point falls back to the pure-Python implementation
-when the toolchain or library is unavailable, so the native path is a pure
-accelerator, never a hard dependency.
+The shared library is built from the tracked source with g++ on first use
+and named after a hash of that source (``native/libcsr_builder-<hash>.so``,
+ignored by git), so an edited source always gets a fresh build and a
+checkout never loads a stale binary.  Every entry point falls back to the
+pure-Python implementation when the toolchain or library is unavailable,
+so the native path is a speed-up, never a hard dependency.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import List, Optional, Tuple
@@ -18,7 +23,6 @@ import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _SRC = _NATIVE_DIR / "csr_builder.cpp"
-_LIB = _NATIVE_DIR / "libcsr_builder.so"
 
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
@@ -28,18 +32,37 @@ _load_failed = False
 _build_lock = threading.Lock()
 
 
+def library_path() -> Path:
+    """Where the library built from the current source lives."""
+    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    return _NATIVE_DIR / f"libcsr_builder-{digest}.so"
+
+
+def _build(lib_path: Path) -> None:
+    """Compile into a temporary file, then rename: concurrent builders
+    (test workers, pipeline processes) never load a half-written file."""
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_NATIVE_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SRC), "-o", tmp],
+            check=True, capture_output=True,
+        )
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
 def _ensure_built() -> Optional[ctypes.CDLL]:
     global _lib, _load_failed
     if _lib is not None or _load_failed:
         return _lib
     try:
-        if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                 str(_SRC), "-o", str(_LIB)],
-                check=True, capture_output=True,
-            )
-        lib = ctypes.CDLL(str(_LIB))
+        lib_path = library_path()
+        if not lib_path.exists():
+            _build(lib_path)
+        lib = ctypes.CDLL(str(lib_path))
         lib.csr_build.restype = ctypes.c_int64
         lib.csr_build.argtypes = [
             ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
@@ -58,7 +81,9 @@ def _ensure_built() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_int32),
         ]
         _lib = lib
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
+        # no compiler, a failed build or an unloadable library: the
+        # pure-Python path takes over
         _load_failed = True
     return _lib
 

@@ -1,18 +1,18 @@
 """FAISS IVF-Flat parity harness (BASELINE config 3's literal bar).
 
-BASELINE.md config 3 asks the TPU IVF to "match faiss IVF-Flat at the
+BASELINE.md config 3 asks the device IVF to "match faiss IVF-Flat at the
 same (K, nprobe)".  faiss is not installed in the build image, so every
-recall figure in BENCH_r0N.json is measured against the *exact* oracle
+recall figure in the benchmark is measured against the *exact* oracle
 instead — a strictly harder reference, but one that never pins the claim
 to faiss's own recall curve.  This harness closes that gap wherever
 faiss IS available: it builds `faiss.IndexIVFFlat` and `index.ivf.
 build_ivf` on the SAME corpus at the SAME (K, nprobe) and equal memory
-(both sides store the full f32 rows; the TPU side's only extra is the
-aligned-list zero padding, which it reports), and prints one JSON line
+(both sides store the full f32 rows; any extra rows the device side
+stores are reported), and prints one JSON line
 with both recall@k curves so the two can be compared point-by-point.
 
 Reference role: src/ingestion.py:79-84 builds the faiss index the
-reference serves from; src/retrieval.py:1140 searches it.  The TPU IVF
+reference serves from; src/retrieval.py:1140 searches it.  The device IVF
 (index/ivf.py) replaces it per SURVEY §2.2.
 
 Usage:  python scripts/faiss_parity.py [N] [D] [K] [k]
@@ -96,25 +96,25 @@ def main() -> None:
         _, ids = fidx.search(q, k)
         faiss_curve[npr] = round(recall(ids, oracle), 4)
 
-    # --- TPU IVF at the same (K, nprobe) ---
+    # --- device IVF at the same (K, nprobe) ---
     import jax.numpy as jnp
 
     from rag_challenge_2_tpu.index.ivf import build_ivf, ivf_search
 
     idx = build_ivf(jnp.asarray(x), n_clusters=K, seed=0)
     jq = jnp.asarray(q)
-    tpu_curve = {}
+    device_curve = {}
     for npr in nprobes:
         _, ids = ivf_search(idx, jq, k, nprobe=npr)
-        tpu_curve[npr] = round(recall(np.asarray(ids), oracle), 4)
+        device_curve[npr] = round(recall(np.asarray(ids), oracle), 4)
 
     pad_rows = int(idx.emb_perm.shape[0]) - n
     print(json.dumps({
         "config": {"N": n, "D": d, "K": K, "k": k,
-                   "tpu_pad_rows": pad_rows,
-                   "tpu_extra_mem_pct": round(100.0 * pad_rows / n, 2)},
+                   "device_pad_rows": pad_rows,
+                   "device_extra_mem_pct": round(100.0 * pad_rows / n, 2)},
         "faiss_recall_at_k": faiss_curve,
-        "tpu_recall_at_k": tpu_curve,
+        "device_recall_at_k": device_curve,
     }))
 
 

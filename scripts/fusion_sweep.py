@@ -18,9 +18,9 @@ Reference semantics being probed: src/retrieval.py:1639-1661 (the
 score-union + bonus fusion).  Usage:
 
   python scripts/fusion_sweep.py [steps]   (default 5000; reuses
-      /tmp/enc_hybrid_arm.npz from scripts/hybrid_quality.py if present)
+      runs/enc_hybrid_arm.npz from scripts/hybrid_quality.py if present)
 
-Writes /tmp/fusion_sweep.json.
+Writes runs/fusion_sweep.json.
 """
 import json
 import os
@@ -30,6 +30,8 @@ import numpy as np
 
 from rag_challenge_2_tpu.eval.encoder_quality import build_dataset, eval_hybrid
 from rag_challenge_2_tpu.models.encoder import EmbeddingModel, EncoderConfig
+
+os.makedirs("runs", exist_ok=True)  # outputs stay in the checkout
 
 METHOD_BONUS = 0.1  # ops/aggregate.py parity
 TOP_ARM = 30        # serving top_k / bm25_top_k
@@ -121,7 +123,7 @@ def main():
     steps = int(sys.argv[1]) if len(sys.argv) > 1 else 5000
     ds = build_dataset(seed=0)
     cfg = EncoderConfig(max_len=96)
-    cache = f"/tmp/enc_hybrid_arm_{steps}.npz"
+    cache = f"runs/enc_hybrid_arm_{steps}.npz"
     if os.path.exists(cache):
         from rag_challenge_2_tpu.models.pretrain import load_params
 
@@ -177,7 +179,7 @@ def main():
 
     for name, m in out.items():
         print(f"{name:24s} {m}", flush=True)
-    json.dump(out, open(f"/tmp/fusion_sweep_{steps}.json", "w"), indent=1)
+    json.dump(out, open(f"runs/fusion_sweep_{steps}.json", "w"), indent=1)
 
 
 if __name__ == "__main__":

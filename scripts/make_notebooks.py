@@ -3,7 +3,7 @@
 Role of the reference's Colab notebooks (reference
 jupyter/val_jinpan_colab.ipynb, jupyter/val_online_colab.ipynb): a guided
 end-to-end workflow (env setup → install → build databases → batch QA) and
-an interactive-QA walkthrough.  The TPU-native equivalents drop the
+an interactive-QA walkthrough.  The equivalents here drop the
 Colab-specific machinery (Drive mount, pip installs, GPU/EasyOCR setup —
 nothing to install here) and drive the in-repo demo set through the same
 stages on the default JAX device.
@@ -46,11 +46,11 @@ def notebook(cells: list) -> dict:
 
 
 END_TO_END = [
-    md("""# 金盘科技 RAG 问答 — TPU 端到端工作流
+    md("""# 金盘科技 RAG 问答 — 端到端工作流
 
-TPU-native 版的端到端流程（对应 reference `jupyter/val_jinpan_colab.ipynb` 的
+on-device 版的端到端流程（对应 reference `jupyter/val_jinpan_colab.ipynb` 的
 挂载 Drive → 安装依赖 → 建库 → 问答流程）。这里没有 Colab 机器：依赖已就绪，
-计算在 JAX 默认设备（TPU / CPU）上执行，语料用仓库内置的 demo test set。
+计算在 JAX 默认设备（GPU / CPU）上执行，语料用仓库内置的 demo test set。
 
 **流程**：解析报告 → 合并/分块 → 构建 on-device 索引 → 检索 → 批量问答 → 查看结果。
 
@@ -106,7 +106,7 @@ print(f"chunks={idx.n_chunks} docs={idx.n_docs} dim={idx.dim} "
 """),
     md("""## 步骤 3 · 一次检索（看看索引在做什么）
 
-单个 jitted 图：查询嵌入 × 语料矩阵（MXU matmul）→ 年份路由掩码 → fused
+单个 jitted 图：查询嵌入 × 语料矩阵（matmul）→ 年份路由掩码 → fused
 top-k → 页级聚合 + 命中/方法奖励（reference `src/retrieval.py:1639-1661` 的
 语义，做成 segment ops）。"""),
     code("""
@@ -137,10 +137,9 @@ for a in result["questions"][:3]:
 - submission / debug JSON 在 `<root>/answers_*.json`（不覆盖，自动编号）。
 - 评分：`python main.py rank --submissions-dir … --answers …`（竞赛规则，
   reference `rank.py`）；LLM-as-judge 走 `eval.judge.JudgeHarness`。
-- 交互式问答见 `jupyter/val_online_tpu.ipynb`；浏览器界面
+- 交互式问答见 `jupyter/val_online.ipynb`；浏览器界面
   `python main.py serve`。
-- 基准测试（驱动指标）：`python bench.py` — 在真实 TPU 上测 exact/IVF/hybrid
-  QPS 与 recall。"""),
+- GPU 端到端检查：`python chip_smoke.py`；基准测试：`python bench.py`。"""),
     code("""
 out_files = sorted(pipe.paths.root_path.glob("answers_*.json"))
 print("输出文件:", [f.name for f in out_files][-4:])
@@ -148,11 +147,11 @@ print("输出文件:", [f.name for f in out_files][-4:])
 ]
 
 VAL_ONLINE = [
-    md("""# 交互式问答（val_online）— TPU 版
+    md("""# 交互式问答（val_online）
 
 对应 reference `jupyter/val_online_colab.ipynb` / `src/val_online.py`：
 已建好索引后，直接用 Python API 提问、多轮追问、切换检索算法。先跑
-`jupyter/end_to_end_tpu.ipynb`（或 `python main.py parse-pdfs &&
+`jupyter/end_to_end.ipynb`（或 `python main.py parse-pdfs &&
 python main.py process-reports`）建库。"""),
     code("""
 import os, dataclasses
@@ -226,8 +225,8 @@ def write_notebooks() -> list[Path]:
     out_dir = REPO / "jupyter"
     out_dir.mkdir(exist_ok=True)
     paths = []
-    for name, cells in [("end_to_end_tpu.ipynb", END_TO_END),
-                        ("val_online_tpu.ipynb", VAL_ONLINE)]:
+    for name, cells in [("end_to_end.ipynb", END_TO_END),
+                        ("val_online.ipynb", VAL_ONLINE)]:
         p = out_dir / name
         p.write_text(json.dumps(notebook(cells), ensure_ascii=False, indent=1))
         paths.append(p)

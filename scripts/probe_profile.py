@@ -1,188 +1,250 @@
-"""Profile the probe-served 10M hybrid: where do its ~5.2 ms/call go?
+"""Time the two gathers of the retrieval path as XLA compiles them.
 
-Builds the same cluster-ordered 10M int8 corpus as bench.bench_ivf_10m,
-then times the components separately on the SAME data:
-  1. the full routed dense+BM25+fusion graph (the 765 qps headline)
-  2. dense probes only (use_bm25 off)
-  3. ivf_search alone at the engine's shapes (pair_doc mode)
-  4. the raw Pallas span kernel at the same span count/width
-  5. BM25 alone (use_bm25 on, method basic, probes off = exact scan? no -
-     measured as full minus dense by differencing instead)
+1. The IVF probe (index/ivf.ivf_search): 127 queries, nprobe 8, over a
+   clustered 1M × 1024 corpus with K = 4096 lists (BASELINE config 3),
+   for f32, bf16 and int8 stores.
+2. The BM25 posting gather (ops/bm25): B·T·W = 8·64·512 over a synthetic
+   CSR of ~67M postings (2^18 terms, lists of 1..512 postings).
 
-Usage: python _exp_probe_profile.py [N C]   (defaults 10M / 500k)
+For each it prints the host-clock time per call (after warm-up, ended by
+``block_until_ready``), the device time per call summed from a profiler
+trace, the bytes the gather has to read, and the achieved bytes/s against
+the card's published memory bandwidth.  For the probe it also says whether
+the gathered ``[B, W, D]`` rows reach device memory: any instruction of
+that shape outside a fusion in the compiled program is a buffer XLA
+writes and reads back.
+
+Usage (on the GPU)::
+
+    PYTHONPATH=. python scripts/probe_profile.py [--rows 1000000] [--trace-dir DIR]
+
+The last line of standard output is one JSON object with every number.
 """
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
 import functools
-import sys
+import glob
+import json
+import re
+import subprocess
 import time
+from collections import defaultdict
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rag_challenge_2_tpu.index.ivf import (
-    build_ivf_streaming, cluster_order_index, ivf_search,
-)
-from rag_challenge_2_tpu.index.schema import CorpusIndex, SparseIndex
-from rag_challenge_2_tpu.ops.pallas_bm25 import dma_slack
-from rag_challenge_2_tpu.ops.pallas_ivf import probe_span_scores
-from rag_challenge_2_tpu.retrieval.engine import SearchConfig, search_device
+from rag_challenge_2_tpu.index.ivf import build_ivf, ivf_search, quantize_ivf
+from rag_challenge_2_tpu.index.schema import SparseIndex
+from rag_challenge_2_tpu.ops.bm25 import _gather_contributions, bm25_topk
 
-N = int(sys.argv[1]) if len(sys.argv) > 1 else 10_000_000
-C = int(sys.argv[2]) if len(sys.argv) > 2 else 500_000
-D, N_CENTERS, NQ = 1024, 4096, 127
-
-key = jax.random.PRNGKey(0)
-kc_, kq_ = jax.random.split(key, 2)
-centers = jax.random.normal(kc_, (N_CENTERS, D), jnp.float32)
-centers = centers / jnp.linalg.norm(centers, axis=1, keepdims=True)
+# Published memory bandwidth per device kind (NVIDIA data sheets, SXM).
+PEAK_BYTES_PER_S = {"NVIDIA H100 80GB HBM3": 3.35e12}
 
 
-@jax.jit
-def gen_chunk(centers, i):
-    k = jax.random.fold_in(jax.random.PRNGKey(1), i)
-    ka, kn = jax.random.split(k)
-    a = jax.random.randint(ka, (C,), 0, N_CENTERS)
-    e = centers[a] + (0.35 / jnp.sqrt(D)) * jax.random.normal(kn, (C, D), jnp.float32)
-    return e / jnp.linalg.norm(e, axis=1, keepdims=True)
-
-
-def sync(x):
-    return np.asarray(jnp.sum(x))
-
-
-def timeit(name, fn, reps=8, windows=3):
-    out = fn()
-    sync(out)
-    best = 1e9
-    for _ in range(windows):
+def timed(fn, reps: int = 20) -> float:
+    """Median seconds per call over 3 windows of ``reps`` calls."""
+    jax.block_until_ready(fn())
+    per = []
+    for _ in range(3):
         t0 = time.perf_counter()
+        out = None
         for _ in range(reps):
             out = fn()
-        sync(out)
-        best = min(best, (time.perf_counter() - t0) / reps)
-    print(f"{name}: {best * 1000:.2f} ms/call", flush=True)
-    return best
+        jax.block_until_ready(out)
+        per.append((time.perf_counter() - t0) / reps)
+    return float(np.median(per))
 
 
-q = None
-for i in range(1):
-    e = gen_chunk(centers, jnp.int32(0))
-    kr, kn2 = jax.random.split(kq_)
-    r = jax.random.randint(kr, (NQ,), 0, C)
-    q = e[r] + (0.25 / jnp.sqrt(D)) * jax.random.normal(kn2, (NQ, D), jnp.float32)
+def device_seconds(fn, trace_dir: str, reps: int = 10) -> tuple[float, dict]:
+    """Device-busy seconds per call from a profiler trace of ``reps`` calls,
+    and the busiest kernels (name → ms per call)."""
+    jax.block_until_ready(fn())
+    with jax.profiler.trace(trace_dir):
+        out = None
+        for _ in range(reps):
+            out = fn()
+        jax.block_until_ready(out)
+    paths = sorted(glob.glob(f"{trace_dir}/**/*.xplane.pb", recursive=True))
+    from jax.profiler import ProfileData
+
+    pd = ProfileData.from_file(paths[-1])
+    per_kernel = defaultdict(float)
+    intervals = []
+    for plane in pd.planes:
+        if not plane.name.startswith("/device:GPU"):
+            continue
+        lines = [ln for ln in plane.lines if ln.name.startswith("Stream")]
+        for line in lines or plane.lines:
+            for ev in line.events:
+                per_kernel[ev.name] += ev.duration_ns
+                intervals.append((ev.start_ns, ev.start_ns + ev.duration_ns))
+    busy, end = 0.0, -1.0
+    for s, e in sorted(intervals):       # union of the kernel intervals
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return busy * 1e-9 / reps, {k: round(v * 1e-6 / reps, 4) for k, v in top}
+
+
+def materialized(hlo: str, shape: str) -> list[str]:
+    """Instructions producing ``shape`` that sit in a non-fused computation
+    (their result is a device-memory buffer)."""
+    hits, comp = [], ""
+    for line in hlo.splitlines():
+        if line and not line.startswith(" ") and line.rstrip().endswith("{"):
+            comp = line.split()[0] if not line.startswith("ENTRY") else "ENTRY"
+        elif re.search(r"= \w+\[" + shape + r"\]", line) and "fused" not in comp:
+            hits.append(f"{comp}: {line.strip()[:160]}")
+    return hits
+
+
+def profile_probe(rows: int, dim: int, k_lists: int, nq: int, nprobe: int,
+                  peak: float, trace_dir: str) -> dict:
+    key = jax.random.PRNGKey(0)
+    kc, ka, kn, kr, kq = jax.random.split(key, 5)
+
+    @functools.partial(jax.jit, static_argnames=("n",))
+    def gen(n):
+        centers = jax.random.normal(kc, (1024, dim), jnp.float32)
+        centers /= jnp.linalg.norm(centers, axis=1, keepdims=True)
+        a = jax.random.randint(ka, (n,), 0, 1024)
+        e = centers[a] + (0.35 / np.sqrt(dim)) * jax.random.normal(kn, (n, dim))
+        return e / jnp.linalg.norm(e, axis=1, keepdims=True)
+
+    emb = gen(rows)
+    r = jax.random.randint(kr, (nq,), 0, rows)
+    q = emb[r] + (0.25 / np.sqrt(dim)) * jax.random.normal(kq, (nq, dim))
     q = q / jnp.linalg.norm(q, axis=1, keepdims=True)
-    del e
+    t0 = time.perf_counter()
+    ivf = build_ivf(emb, n_clusters=k_lists, iters=8,
+                    max_list_size=max(2 * rows // k_lists, 16))
+    jax.block_until_ready(ivf.emb_perm)
+    build_s = time.perf_counter() - t0
+    del emb
+    W = ivf.max_list
+    out = {"rows": rows, "dim": dim, "k_lists": ivf.k_clusters, "nq": nq,
+           "nprobe": nprobe, "window": W, "build_s": build_s}
+    for store in ("f32", "bf16", "int8"):
+        if store == "bf16":
+            idx = dataclasses.replace(
+                ivf, emb_perm=ivf.emb_perm.astype(jnp.bfloat16))
+        elif store == "int8":
+            idx = quantize_ivf(ivf)
+        else:
+            idx = ivf
+        fn = functools.partial(ivf_search, idx, q, 10, nprobe=nprobe)
+        item = jnp.dtype(idx.emb_perm.dtype).itemsize
+        gathered = nq * nprobe * W * dim * item
+        host_s = timed(fn)
+        dev_s, top = device_seconds(fn, f"{trace_dir}/probe_{store}")
+        hlo = ivf_search.lower(idx, q, 10, nprobe=nprobe).compile().as_text()
+        hits = materialized(hlo, f"{nq},{W},{dim}")
+        out[store] = {
+            "host_ms": host_s * 1e3, "device_ms": dev_s * 1e3,
+            "gathered_bytes": gathered,
+            "achieved_bytes_per_s": gathered / dev_s,
+            "share_of_peak_bandwidth": gathered / dev_s / peak,
+            "gather_materialized": bool(hits), "materialized_ops": hits[:3],
+            "top_kernels_ms": top,
+        }
+        print(f"probe {store}: host {host_s * 1e3:.3f} ms, device "
+              f"{dev_s * 1e3:.3f} ms/call, {gathered / 1e9:.3f} GB gathered "
+              f"→ {gathered / dev_s / 1e12:.3f} TB/s "
+              f"({100 * gathered / dev_s / peak:.1f}% of peak); "
+              f"[B,W,D] in device memory: {bool(hits)}", flush=True)
+        for h in hits[:3]:
+            print("   ", h, flush=True)
+        for name, ms in top.items():
+            print(f"    {ms:9.4f} ms  {name[:100]}", flush=True)
+    return out
 
-t0 = time.perf_counter()
-ivf = build_ivf_streaming(
-    functools.partial(gen_chunk, centers), N // C,
-    iters=8, sample_rows=C, max_list_size=2048, quantize=True,
-)
-sync(ivf.emb_perm)
-print(f"build: {time.perf_counter() - t0:.1f}s K={ivf.k_clusters} "
-      f"max_list={ivf.max_list}", flush=True)
 
-N_DOCS, Q_BATCH, T, V_BITS, W_P = 6, 4, 64, 18, 512
-V = 1 << V_BITS
-rng = np.random.default_rng(3)
-counts = rng.integers(1, W_P + 1, size=V).astype(np.int64)
-indptr = np.zeros(V + 1, np.int64)
-np.cumsum(counts, out=indptr[1:])
-nnz = int(indptr[-1])
-nnz_pad = -(-(nnz + dma_slack(W_P)) // 1024) * 1024
-kc2, kt2, kqt2 = jax.random.split(jax.random.PRNGKey(3), 3)
-sparse = SparseIndex(
-    indptr=jnp.asarray(indptr, jnp.int32),
-    chunk_ids=jax.random.randint(kc2, (nnz_pad,), 0, N, jnp.int32),
-    tf=jax.random.randint(kt2, (nnz_pad,), 1, 5, jnp.int32).astype(jnp.float32),
-    df=jnp.asarray(counts, jnp.float32),
-    chunk_len=jnp.full((N,), 300.0, jnp.float32), avgdl=jnp.float32(300.0),
-    dl=jnp.full((nnz_pad,), 300.0, jnp.float32),
-    vocab_bits=V_BITS, max_postings=W_P, dma_pad=nnz_pad - nnz)
-rows = jnp.arange(N, dtype=jnp.int32)
-per_doc = N // N_DOCS
-doc_id = jnp.minimum(rows // per_doc, N_DOCS - 1).astype(jnp.int32)
-idx_flat = CorpusIndex(
-    emb=jnp.zeros((N, 1), jnp.int8), doc_id=doc_id, page=rows % 500 + 1,
-    year=2020 + doc_id, company_id=jnp.zeros((N,), jnp.int32),
-    kind=jnp.zeros((N,), jnp.int32), page_seg=rows // 4,
-    chunk_in_doc=rows % per_doc, valid=jnp.ones((N,), bool),
-    sparse=sparse, n_chunks=N, n_pages=N // 4, n_docs=N_DOCS, dim=D)
-idx_co, _, ivf_co = cluster_order_index(idx_flat, None, ivf)
-del idx_flat
-doc_masks = jnp.stack([idx_co.doc_id == d for d in range(N_DOCS)])
-doc_valid = jnp.asarray([True, True, True, False, False, False])
-row_slot = jnp.where(idx_co.doc_id < 3, idx_co.doc_id, N_DOCS).astype(jnp.int32)
-slot_doc = jnp.asarray([0, 1, 2, -1, -1, -1], jnp.int32)
-q_valid = jnp.ones((Q_BATCH,), bool)
-q_terms = jax.random.randint(kqt2, (Q_BATCH, T), 0, V, jnp.int32)
-qb = q[:Q_BATCH]
-nprobe = 8
+def profile_bm25(n_rows: int, B: int, T: int, W: int, v_bits: int,
+                 peak: float, trace_dir: str) -> dict:
+    rng = np.random.default_rng(3)
+    V = 1 << v_bits
+    counts = rng.integers(1, W + 1, size=V).astype(np.int64)
+    indptr = np.zeros(V + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    nnz = int(indptr[-1])
+    kc, kt, kq = jax.random.split(jax.random.PRNGKey(3), 3)
+    sp = SparseIndex(
+        indptr=jnp.asarray(indptr, jnp.int32),
+        chunk_ids=jax.random.randint(kc, (nnz,), 0, n_rows, jnp.int32),
+        tf=jax.random.randint(kt, (nnz,), 1, 5, jnp.int32).astype(jnp.float32),
+        df=jnp.asarray(counts, jnp.float32),
+        chunk_len=jnp.full((n_rows,), 300.0, jnp.float32),
+        avgdl=jnp.float32(300.0),
+        dl=jnp.full((nnz,), 300.0, jnp.float32),
+        vocab_bits=v_bits, max_postings=W,
+    )
+    q_terms = jax.random.randint(kq, (B, T), 0, V, jnp.int32)
 
-import threading
+    @jax.jit
+    def gather(q_terms):
+        rows, contrib = _gather_contributions(
+            sp.indptr, sp.chunk_ids, sp.tf, sp.df, sp.chunk_len, sp.avgdl,
+            q_terms, window=W, k1=1.5, b=0.75, dl=sp.dl)
+        return rows, contrib
 
-for QB in (4, 8, 16, 32):
-    cfg_h = SearchConfig(method="basic", top_k=30, max_queries=QB,
-                         max_docs=N_DOCS, top_n=30, use_bm25=True,
-                         bm25_top_k=30, use_ivf=True, ivf_nprobe=nprobe)
-    qv = jnp.ones((QB,), bool)
-    qt = jax.random.randint(kqt2, (QB, T), 0, V, jnp.int32)
-    qq = q[:QB]
-    call = lambda x=qq, c=cfg_h, v=qv, t=qt: search_device(
-        idx_co, x, v, doc_masks, doc_valid, c, t, ivf_co, row_slot,
-        slot_doc=slot_doc)[0].score
-    t1 = timeit(f"full hybrid QB={QB}", call)
-    print(f"  -> {QB / t1:.0f} qps single-dispatch", flush=True)
+    n_docs = 6
+    doc_masks = jnp.stack([(jnp.arange(n_rows) * n_docs // n_rows) == d
+                           for d in range(n_docs)])
+    topk = functools.partial(bm25_topk, sp, q_terms, doc_masks, 10, window=W)
+    gathered = B * T * W * 12            # chunk id + tf + dl, 4 bytes each
+    out = {"nnz": nnz, "B": B, "T": T, "W": W, "gathered_bytes": gathered}
+    for name, fn in (("gather", lambda: gather(q_terms)), ("bm25_topk", topk)):
+        host_s = timed(fn)
+        dev_s, top = device_seconds(fn, f"{trace_dir}/bm25_{name}")
+        out[name] = {"host_ms": host_s * 1e3, "device_ms": dev_s * 1e3,
+                     "achieved_bytes_per_s": gathered / dev_s,
+                     "share_of_peak_bandwidth": gathered / dev_s / peak,
+                     "top_kernels_ms": top}
+        print(f"bm25 {name}: host {host_s * 1e3:.3f} ms, device "
+              f"{dev_s * 1e3:.3f} ms/call over nnz={nnz}; "
+              f"{gathered / 1e6:.1f} MB gathered → "
+              f"{gathered / dev_s / 1e9:.1f} GB/s", flush=True)
+        for k, ms in top.items():
+            print(f"    {ms:9.4f} ms  {k[:100]}", flush=True)
+    return out
 
-    def two_thread():
-        box = {}
-        def half(i):
-            o = None
-            for _ in range(4):
-                o = call()
-            box[i] = o
-        th = threading.Thread(target=half, args=(1,))
-        th.start(); half(0); th.join()
-        sync(box[0]); sync(box[1])
-        return box[0]
-    t2 = timeit(f"  2-thread x8 calls QB={QB}", two_thread, reps=1)
-    print(f"  -> {8 * QB / t2:.0f} qps serving", flush=True)
 
-cfg_h = SearchConfig(method="basic", top_k=30, max_queries=Q_BATCH,
-                     max_docs=N_DOCS, top_n=30, use_bm25=True,
-                     bm25_top_k=30, use_ivf=True, ivf_nprobe=nprobe)
-cfg_d = SearchConfig(method="basic", top_k=30, max_queries=Q_BATCH,
-                     max_docs=N_DOCS, top_n=30, use_bm25=False,
-                     use_ivf=True, ivf_nprobe=nprobe)
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--dim", type=int, default=1024)
+    ap.add_argument("--lists", type=int, default=4096)
+    ap.add_argument("--queries", type=int, default=127)
+    ap.add_argument("--nprobe", type=int, default=8)
+    ap.add_argument("--bm25-rows", type=int, default=10_000_000)
+    ap.add_argument("--trace-dir", default="runs/probe_profile")
+    args = ap.parse_args()
 
-t_h = timeit("full hybrid (dense probes + bm25 + fusion)",
-             lambda: search_device(idx_co, qb, q_valid, doc_masks, doc_valid,
-                                   cfg_h, q_terms, ivf_co, row_slot,
-                                   slot_doc=slot_doc)[0].score)
-t_d = timeit("dense probes + fusion only",
-             lambda: search_device(idx_co, qb, q_valid, doc_masks, doc_valid,
-                                   cfg_d, None, ivf_co, row_slot,
-                                   slot_doc=slot_doc)[0].score)
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"needs a GPU, found {dev.platform}")
+    if dev.device_kind not in PEAK_BYTES_PER_S:
+        raise SystemExit(f"no published bandwidth for {dev.device_kind!r}")
+    peak = PEAK_BYTES_PER_S[dev.device_kind]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"device: {dev.device_kind}; nvidia-smi: {smi}", flush=True)
 
-# engine pair shape: (Q_BATCH queries x 3 routed slots) pairs
-pair_doc = jnp.repeat(slot_doc[None, :3], Q_BATCH, 0).reshape(-1)
-q_pairs = jnp.repeat(qb, 3, axis=0)
-t_ivf = timeit(f"ivf_search alone ({Q_BATCH * 3} pairs, nprobe={nprobe})",
-               lambda: ivf_search(ivf_co, q_pairs, 30, nprobe=nprobe,
-                                  pair_doc=pair_doc,
-                                  pos_doc=idx_co.doc_id)[0])
+    report = {"device": dev.device_kind, "nvidia_smi": smi,
+              "peak_bytes_per_s": peak}
+    report["bm25"] = profile_bm25(args.bm25_rows, 8, 64, 512, 18, peak,
+                                  args.trace_dir)
+    report["probe"] = profile_probe(args.rows, args.dim, args.lists,
+                                    args.queries, args.nprobe, peak,
+                                    args.trace_dir)
+    print(json.dumps(report, default=float))
 
-# raw span kernel at the same volume: pairs x nprobe spans
-G = Q_BATCH * 3 * nprobe
-starts = (jax.random.randint(jax.random.PRNGKey(7), (G,), 0,
-                             ivf_co.emb_perm.shape[0] // 32 - ivf.max_list // 32,
-                             jnp.int32)) * 32
-from rag_challenge_2_tpu.ops.quant import quantize_rows
-q8, _ = quantize_rows(jnp.repeat(qb, 3 * nprobe, axis=0))
-t_k = timeit(f"raw span kernel ({G} spans, W={ivf.max_list})",
-             lambda: probe_span_scores(ivf_co.emb_perm, q8, starts,
-                                       window=ivf.max_list))
-gb = G * (-(-ivf.max_list // 128) * 128) * D / 1e9
-print(f"kernel bandwidth: {gb / t_k:.0f} GB/s of {gb:.2f} GB/call")
-print(f"bm25+fusion share = {1000 * (t_h - t_d):.2f} ms; "
-      f"probe share inside dense = {1000 * t_ivf:.2f} ms")
+
+if __name__ == "__main__":
+    main()

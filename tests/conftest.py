@@ -1,9 +1,9 @@
 """Test harness configuration.
 
 Forces an 8-device virtual CPU mesh BEFORE jax import so every test —
-including sharded/distributed ones — runs without TPU hardware
-(SURVEY.md §4: multi-device tests via device-count override).  Pallas
-kernels run in interpret mode on CPU (handled inside the ops layer).
+including sharded/distributed ones — runs without accelerator hardware
+(SURVEY.md §4: multi-device tests via device-count override).  The GPU
+run is ``python chip_smoke.py`` (README.md).
 """
 
 import os

@@ -1,7 +1,8 @@
-"""BM25 CSR kernel vs a pure-numpy oracle over the same tokenisation."""
+"""BM25 CSR scorer vs a pure-numpy oracle over the same tokenisation."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from rag_challenge_2_tpu.index import build_corpus_index
 from rag_challenge_2_tpu.ops.bm25 import bm25_scores, encode_queries
@@ -190,17 +191,43 @@ def _check_topk(idx, meta, qt, queries, dense, doc_id, valid, doc_masks, k,
                        zip(bv[m, qi], br[m, qi], ok[m, qi]) if not o)
 
 
-def test_pallas_span_gather_matches_xla(tiny_corpus):
-    """The contiguous-DMA span gather (interpret mode on CPU) must return
-    exactly what the XLA fancy-indexing path returns."""
+def _csr_oracle(sp, q_terms, n_rows, use_dl):
+    """numpy BM25 straight off the CSR arrays (ops/bm25.py formula)."""
+    indptr = np.asarray(sp.indptr)
+    ids, tf = np.asarray(sp.chunk_ids), np.asarray(sp.tf)
+    df, clen = np.asarray(sp.df), np.asarray(sp.chunk_len)
+    dl = np.asarray(sp.dl) if use_dl else None
+    n_corpus = max(float((clen > 0).sum()), 1.0)
+    out = np.zeros((len(q_terms), n_rows))
+    for qi, terms in enumerate(q_terms):
+        for t in terms:
+            if t < 0:
+                continue
+            idf = np.log1p((n_corpus - df[t] + 0.5) / (df[t] + 0.5))
+            for j in range(int(indptr[t]), int(indptr[t + 1])):
+                length = dl[j] if use_dl else clen[ids[j]]
+                denom = tf[j] + K1 * (1 - B + B * length / float(sp.avgdl))
+                out[qi, ids[j]] += idf * tf[j] * (K1 + 1) / denom
+    return out
+
+
+@pytest.mark.parametrize("use_dl", [True, False])
+@pytest.mark.parametrize("window", ["max_postings", "wider"])
+def test_bm25_window_and_dl_span_match_oracle(tiny_corpus, use_dl, window):
+    """The gather clamps span positions into the unpadded CSR and masks
+    them: a window wider than every posting list (here past the buffer's
+    end) scores exactly like the tight one.  Doc lengths read from the
+    per-posting ``dl`` span equal the ``chunk_len[rows]`` gather."""
+    import dataclasses
+
     idx, *_ = tiny_corpus
     sp = idx.sparse
-    from rag_challenge_2_tpu.ops.bm25 import _pick_pallas, bm25_scores, encode_queries
-    from rag_challenge_2_tpu.ops.pallas_bm25 import dma_slack
-
-    W = max(sp.max_postings, 1)
-    assert sp.dma_pad >= dma_slack(W), "build must leave DMA slack"
-    qt = encode_queries(["金盘科技 营业收入", "页面2"], 16, sp.vocab_bits)
-    s_xla = np.asarray(bm25_scores(sp, qt, idx.n_pad, impl="xla"))
-    s_pal = np.asarray(bm25_scores(sp, qt, idx.n_pad, impl="pallas"))
-    np.testing.assert_allclose(s_pal, s_xla, rtol=1e-5, atol=1e-6)
+    assert sp.chunk_ids.shape[0] == int(sp.indptr[-1]), "CSR carries no padding"
+    if not use_dl:
+        sp = dataclasses.replace(sp, dl=None)
+    W = None if window == "max_postings" else sp.chunk_ids.shape[0] + 7
+    queries = ["金盘科技 营业收入", "页面2 chunk4", "doc0 doc1 页面3"]
+    qt = encode_queries(queries, max_terms=16, vocab_bits=sp.vocab_bits)
+    got = np.asarray(bm25_scores(sp, qt, idx.n_pad, k1=K1, b=B, window=W))
+    want = _csr_oracle(sp, np.asarray(qt), idx.n_pad, use_dl)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -1,7 +1,7 @@
 """Encoder retrieval-quality harness (eval/encoder_quality.py).
 
-The production experiment runs on TPU via ``main.py eval-encoder``
-(results in docs/ENCODER_QUALITY.json); these tests pin the harness
+The production experiment runs on the accelerator via
+``main.py eval-encoder``; these tests pin the harness
 mechanics at toy scale: dataset determinism, leakage hygiene, metric math,
 and that supervised training actually moves the metric.
 """
@@ -150,7 +150,7 @@ def test_eval_hybrid_sum_fusion_bound():
 
 
 def test_eval_hybrid_e2e_fixture_corpus():
-    """The non-template-shaped serving-quality eval (VERDICT r4 #5): the
+    """The non-template-shaped serving-quality eval: the
     e2e fixture prose + golden questions through the ROUTED hybrid graph.
     A plain character-bigram embedder suffices for the plumbing bound;
     the shipped sum-fusion must not lose to the dense arm alone."""

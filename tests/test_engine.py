@@ -355,8 +355,8 @@ def test_windowed_pair_topk_large_route_parity(engine, rng, monkeypatch):
 
 def test_windowed_pair_topk_scan_rt_mode(engine, rng, monkeypatch):
     """scan_rt set + huge-window route: results still valid (routed rows
-    only, sorted scores) and on the CPU approx fallback identical to
-    exact; on TPU the bench measures the recall cost."""
+    only, sorted scores) and, with approx_max_k's exact fallback on the
+    CPU (and the GPU), identical to exact."""
     import rag_challenge_2_tpu.retrieval.engine as eng_mod
 
     eng, reports, embs = engine

@@ -68,6 +68,35 @@ def test_save_load_roundtrip(tiny_corpus, tmp_path):
     np.testing.assert_allclose(float(sp.avgdl), float(sp2.avgdl))
 
 
+def test_load_index_reads_padded_postings(tiny_corpus, tmp_path):
+    """Index files written when the CSR was over-allocated (chunk_ids/tf
+    padded past indptr[-1] with the last row and tf 0) load and score
+    exactly like the unpadded CSR: no span reads the padding."""
+    import json
+
+    from rag_challenge_2_tpu.ops.bm25 import bm25_scores, encode_queries
+
+    idx, meta, *_ = tiny_corpus
+    p = tmp_path / "corpus.npz"
+    save_index(p, idx, meta)
+    z = dict(np.load(p))
+    nnz = int(z["sp_indptr"][-1])
+    pad = 2048 - nnz % 1024
+    z["sp_chunk_ids"] = np.concatenate(
+        [z["sp_chunk_ids"], np.full(pad, idx.n_pad - 1, np.int32)])
+    z["sp_tf"] = np.concatenate([z["sp_tf"], np.zeros(pad, np.float32)])
+    old = tmp_path / "old.npz"
+    np.savez(old, **z)
+    assert json.loads(str(z["__statics__"]))["has_sparse"]
+
+    idx2, _ = load_index(old)
+    assert idx2.sparse.chunk_ids.shape[0] == nnz + pad
+    qt = encode_queries(["金盘科技 营业收入", "页面2 chunk4"], 16, idx.sparse.vocab_bits)
+    want = np.asarray(bm25_scores(idx.sparse, qt, idx.n_pad))
+    got = np.asarray(bm25_scores(idx2.sparse, qt, idx.n_pad))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
 def test_tokenizer_version_stamp_warns(tiny_corpus, tmp_path):
     import warnings
     from rag_challenge_2_tpu.index import store as store_mod

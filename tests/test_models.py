@@ -1,5 +1,8 @@
 """Encoder forward + sharded contrastive training on the 8-device CPU mesh."""
 
+import dataclasses
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -7,8 +10,9 @@ import pytest
 
 from rag_challenge_2_tpu.models.encoder import (
     EmbeddingModel,
-    Encoder,
     EncoderConfig,
+    encode,
+    init_params,
     tokenize_batch,
 )
 
@@ -81,8 +85,10 @@ def test_sequence_parallel_train_step():
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
     mesh = make_mesh({"data": 2, "model": 2})
+    # q == d starts near zero loss; lr 1e-2 overshoots it on the first
+    # Adam step, 3e-3 descends from every init drawn so far
     module, params, opt_state, step = init_training(
-        SMALL, TrainConfig(lr=1e-2, sequence_parallel=True), mesh
+        SMALL, TrainConfig(lr=3e-3, sequence_parallel=True), mesh
     )
     rng = np.random.default_rng(0)
     q = jnp.asarray(rng.integers(0, 1024, size=(8, 16)).astype(np.int32))
@@ -92,10 +98,8 @@ def test_sequence_parallel_train_step():
         losses.append(float(metrics["loss"]))
     assert losses[-1] < losses[0]
     # sp and non-sp models compute the same function
-    from rag_challenge_2_tpu.models.encoder import Encoder
-    plain = Encoder(SMALL)
-    out_sp = module.apply(params, q)
-    out_plain = plain.apply(params, q)
+    out_sp = module(params, q)
+    out_plain = encode(params, q, SMALL)
     np.testing.assert_allclose(np.asarray(out_sp), np.asarray(out_plain), atol=2e-2)
 
 
@@ -183,18 +187,62 @@ def test_ict_pretraining_learns_and_roundtrips(tmp_path):
 
 def test_moe_aux_loss_reaches_objective():
     from rag_challenge_2_tpu.models.train import TrainConfig, contrastive_loss
-    from rag_challenge_2_tpu.models.encoder import Encoder
 
     cfg_moe = EncoderConfig(vocab_bits=8, d_model=16, n_layers=2, n_heads=2,
                             d_ff=32, max_len=16, out_dim=8, moe_experts=4)
-    module = Encoder(cfg_moe)
-    params = module.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    params = init_params(cfg_moe, jax.random.PRNGKey(0))
     q = jnp.asarray(np.random.default_rng(0).integers(0, 256, size=(4, 8)).astype(np.int32))
-    apply_fn = lambda p, t: module.apply(p, t, mutable=["losses"])
+    apply_fn = lambda p, t: encode(p, t, cfg_moe, with_aux=True)
     loss0, m0 = contrastive_loss(params, apply_fn, q, q, 0.05, moe_aux_weight=0.0)
     loss1, m1 = contrastive_loss(params, apply_fn, q, q, 0.05, moe_aux_weight=1.0)
     assert float(m1["moe_aux"]) > 0, "aux term must be collected"
     assert float(loss1) > float(loss0), "aux term must enter the objective"
+
+
+FIXTURE = Path(__file__).parent / "data" / "encoder_fixture.npz"
+FIXTURE_CFG = dict(vocab_bits=8, d_model=32, n_layers=2, n_heads=4, d_ff=64,
+                   max_len=16, out_dim=16)
+
+
+def _fixture_params(z, name):
+    """Rebuild the nested param tree from the fixture's flat path keys."""
+    tree = {}
+    for key in z.files:
+        if not key.startswith(name + ":params/"):
+            continue
+        *parents, leaf = key.split(":", 1)[1].split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = jnp.asarray(z[key])
+    return tree
+
+
+@pytest.mark.parametrize("name,moe,dtype", [
+    ("dense", 0, "bf16"), ("dense", 0, "f32"), ("moe", 4, "bf16"), ("moe", 4, "f32"),
+])
+def test_encoder_matches_recorded_fixture(name, moe, dtype):
+    """The plain-JAX encoder reproduces outputs recorded once from the
+    original module-based implementation (tests/data/encoder_fixture.npz:
+    params under the same key paths, token batch with padded rows, and
+    expected embeddings for bf16 and f32 activations), so every saved
+    ``encoder_params.npz`` keeps its meaning."""
+    z = np.load(FIXTURE)
+    cfg = EncoderConfig(moe_experts=moe, **FIXTURE_CFG)
+    if dtype == "f32":
+        cfg = dataclasses.replace(cfg, dtype=jnp.float32)
+    params = _fixture_params(z, name)
+    want_shapes = jax.tree_util.tree_map(
+        lambda a: a.shape, init_params(cfg, jax.random.PRNGKey(0)))
+    assert jax.tree_util.tree_map(lambda a: a.shape, params) == want_shapes
+    with jax.default_matmul_precision("highest"):
+        got, aux = encode(params, jnp.asarray(z["tokens"]), cfg, with_aux=True)
+    cos = np.sum(np.asarray(got) * z[f"{name}@{dtype}"], axis=1)
+    assert cos.min() >= 0.999, cos
+    if moe:
+        np.testing.assert_allclose(float(aux), float(z["moe@aux"]), rtol=1e-3)
+    else:
+        assert float(aux) == 0.0
 
 
 def test_length_bucketing_preserves_embeddings():

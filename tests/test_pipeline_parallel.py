@@ -42,8 +42,9 @@ def test_pipeline_matches_sequential(rng, S, M):
 
 @needs8
 def test_pipeline_with_encoder_blocks():
-    """The encoder's homogeneous Block stack runs through the pipeline."""
-    from rag_challenge_2_tpu.models.encoder import Block, EncoderConfig
+    """The encoder's homogeneous block stack runs through the pipeline."""
+    from rag_challenge_2_tpu.models.encoder import (
+        EncoderConfig, block, init_block_params)
 
     # local rng: the shared session fixture makes bf16-tolerance comparisons
     # order-dependent across test runs
@@ -51,27 +52,28 @@ def test_pipeline_with_encoder_blocks():
 
     cfg = EncoderConfig(vocab_bits=8, d_model=16, n_layers=4, n_heads=2,
                         d_ff=32, max_len=8, out_dim=8)
-    block = Block(cfg)
     S, M, mb, L = 4, 2, 2, 8
     mesh = make_mesh({"pipe": S})
-    x0 = jnp.asarray(rng.normal(size=(mb, L, cfg.d_model)).astype(np.float32))
-    mask = jnp.ones((mb, 1, L, L), jnp.bfloat16)
+    pad = jnp.ones((mb, L), bool)
 
     keys = jax.random.split(jax.random.PRNGKey(0), S)
-    stage_params = [block.init(k, x0, mask) for k in keys]
+    stage_params = [init_block_params(cfg, k) for k in keys]
     stacked = jax.tree_util.tree_map(
         lambda *ps: jnp.stack(ps), *stage_params
     )
 
+    def apply(params, x):
+        return block(params, x, pad[:x.shape[0]], cfg)[0].astype(jnp.float32)
+
     def stage_fn(params, x):
-        return block.apply(params, x.astype(jnp.float32), mask[:x.shape[0]])
+        return apply(params, x.astype(jnp.float32))
     xs = jnp.asarray(rng.normal(size=(M, mb, L, cfg.d_model)).astype(np.float32))
     got = pipeline_forward(stage_fn, stacked, xs, mesh, axis="pipe")
 
     expected = xs
     for s in range(S):
         p = stage_params[s]
-        expected = jnp.stack([block.apply(p, expected[m], mask) for m in range(M)])
+        expected = jnp.stack([apply(p, expected[m]) for m in range(M)])
     np.testing.assert_allclose(
         np.asarray(got, np.float32), np.asarray(expected, np.float32),
         rtol=6e-2, atol=6e-2,  # 4 bf16 blocks compound rounding
@@ -80,18 +82,17 @@ def test_pipeline_with_encoder_blocks():
 
 @needs8
 def test_encode_pipelined_matches_plain(rng):
-    """GPipe block-stack forward == the plain Encoder on the same params."""
-    from rag_challenge_2_tpu.models.encoder import Encoder, EncoderConfig
+    """GPipe block-stack forward == the plain encoder on the same params."""
+    from rag_challenge_2_tpu.models.encoder import EncoderConfig, encode, init_params
     from rag_challenge_2_tpu.models.pipelined import encode_pipelined
 
     cfg = EncoderConfig(vocab_bits=10, d_model=32, n_layers=4, n_heads=4,
                         d_ff=64, max_len=16, out_dim=16)
-    module = Encoder(cfg)
-    params = module.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    params = init_params(cfg, jax.random.PRNGKey(0))
     tokens = jnp.asarray(rng.integers(0, cfg.vocab_size, size=(8, 12)).astype(np.int32))
     tokens = tokens.at[3, 6:].set(-1)  # a padded row
 
-    ref = module.apply(params, tokens)
+    ref = encode(params, tokens, cfg)
     mesh = make_mesh({"data": 2, "pipe": 4})
     got = encode_pipelined(cfg, params, tokens, mesh, n_micro=2)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=2e-2, atol=2e-2)

@@ -53,9 +53,9 @@ def test_sharded_uneven_rows(rng):
 @needs_devices
 @pytest.mark.parametrize("shape", [(2, 4), (4, 2)])
 def test_hierarchical_matches_flat_and_oracle(rng, shape):
-    """Two-level ICI/DCN merge (slice × device mesh) must be bit-identical
-    to the flat merge AND the single-device kernel — including ties
-    (SURVEY §5: all_gather over ICI within a slice, DCN across slices)."""
+    """Two-level merge (slice × device mesh) must be bit-identical to the
+    flat merge AND the single-device kernel — including ties (SURVEY §5:
+    all_gather within a node's devices, then across nodes)."""
     from rag_challenge_2_tpu.parallel.sharded_search import (
         hierarchical_dense_topk)
 
@@ -185,10 +185,9 @@ def test_engine_traversal_on_row_sharded_index(tiny_corpus, method):
 
 def test_engine_hier_merge_through_product_graph(rng):
     """search_device(hier=...) runs the dense stage through the two-level
-    ICI/DCN merge (make_hierarchical_topk pair_mask mode) INSIDE the full
-    hybrid graph — fused rows/scores must match the replicated engine
-    (VERDICT r4 #9: the DCN-aware merge exercised through the product
-    graph, not standalone)."""
+    merge (make_hierarchical_topk pair_mask mode) INSIDE the full hybrid
+    graph — fused rows/scores must match the replicated engine (the merge
+    exercised through the product graph, not standalone)."""
     import dataclasses
 
     import jax.numpy as jnp

@@ -191,11 +191,10 @@ def test_windowed_matches_full_traversal(mode, quant):
 @pytest.mark.parametrize("mode", ["ssg", "triangulation"])
 def test_approx_hop_wiring(mode, monkeypatch):
     """approx_rt routes hop-candidate selection through lax.approx_max_k
-    (the 1M+/10M fast tier — engine SearchConfig.scan_rt).  On CPU the
-    PartialReduce falls back to an exact sort, so with the width gate
+    (the 1M+/10M fast tier — engine SearchConfig.scan_rt).  On the CPU
+    approx_max_k falls back to an exact sort, so with the width gate
     patched open both traverse and traverse_windowed must reproduce the
-    exact-hop paths bit-for-bit; the real recall trade is measured on TPU
-    by bench_traversal_1m."""
+    exact-hop paths bit-for-bit."""
     import rag_challenge_2_tpu.retrieval.traversal as tv
 
     rng = np.random.default_rng(23)

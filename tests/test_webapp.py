@@ -10,7 +10,7 @@ import pytest
 @pytest.fixture
 def webapp(tiny_corpus, rng):
     from tests.test_qa import make_processor, BASE_SCRIPT
-    from rag_challenge_2_tpu.serving import QAWebApp
+    from rag_challenge_2_tpu.serving.webapp import QAWebApp
 
     proc, provider = make_processor(tiny_corpus, rng, dict(BASE_SCRIPT))
     app = QAWebApp(proc, default_company="金盘科技")
@@ -256,7 +256,7 @@ def test_pdf_page_viewer_serves_source_bytes(tiny_corpus, rng, tmp_path):
     and /api/pdf streams the raw source bytes (the dependency-free
     cited-page viewer, reference app_jinpan_qa.py:307-352)."""
     from tests.test_qa import make_processor, BASE_SCRIPT
-    from rag_challenge_2_tpu.serving import QAWebApp
+    from rag_challenge_2_tpu.serving.webapp import QAWebApp
 
     blob = b"%PDF-1.4\nfixture-bytes\n%%EOF\n"
     (tmp_path / "J2023_doc0.pdf").write_bytes(blob)
